@@ -1,0 +1,114 @@
+"""Spherical convolutions on the row-offset-table path (counterpart of
+spgan_tpu/geometry/sphere_conv.py: the fused-tables branches the panorama
+engine runs).
+
+* SphereStyledConv: the SS modulated sphere conv.  The 256 latent channels
+  go through the fused sphere-conv kernel (ops/kernels/sphere_kernel.py);
+  the 3 coordinate channels are grid-sampled, re-encoded and convolved
+  with stride 3, exactly as the JAX package does.
+* SphereSkipConv: the TS skip-path sphere conv (RGB 3->3) through the tap
+  conv (ops/grid_sample.st_tap_conv), identity init, LeakyReLU(0.01).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from spgan_tpu_torch.geometry.coords import encode_coords
+from spgan_tpu_torch.ops.grid_sample import st_grid_sample_3x3, st_tap_conv
+from spgan_tpu_torch.ops.kernels.sphere_kernel import (
+    fused_sphere_conv, fused_sphere_conv_grouped)
+from spgan_tpu_torch.ops.modulated import ModulatedConv2d, conv2d_nhwc
+
+
+def _taps(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (out, in, k, k) -> (k*k, in, out), tap t = ti*k + tj."""
+    o, i, kh, kw = w.shape
+    return w.permute(2, 3, 1, 0).reshape(kh * kw, i, o)
+
+
+@dataclass(frozen=True)
+class SphereStyledConv:
+    """in_ch counts the coord channels (local_dim + coord_dim): the
+    identity-init weight and the modulation span the concatenated
+    channels."""
+
+    local_dim: int
+    coord_dim: int
+    out_ch: int
+    style_dim: int
+    kernel_size: int = 3
+
+    @property
+    def in_ch(self) -> int:
+        return self.local_dim + self.coord_dim
+
+    def conv_spec(self) -> ModulatedConv2d:
+        return ModulatedConv2d(
+            in_ch=self.in_ch, out_ch=self.out_ch,
+            kernel_size=self.kernel_size, style_dim=self.style_dim,
+            demodulate=True, no_zero_pad=True, identity_init=True)
+
+    def init(self, gen: torch.Generator) -> dict:
+        return {"conv": self.conv_spec().init(gen)}
+
+    def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor,
+              coords: torch.Tensor, grid: torch.Tensor, tables: dict,
+              groups: int = 0) -> torch.Tensor:
+        """x: (B,H,W,local_dim); coords: (B,H,W,coord_dim) raw indices;
+        style: (B,style_dim).  grid (G,3H,3W,2) and tables (dict of
+        (G,H,K2)) describe G patches, each shared by B//G consecutive
+        samples when groups == G > 0; with groups == 0 there is one per
+        sample.  Output (B,H,W,out_ch), size preserving."""
+        k = self.kernel_size
+        ld = self.local_dim
+        spec = self.conv_spec()
+        s = spec.style_scale(params["conv"], style)            # (B,in_ch)
+        wt = params["conv"]["weight"].to(x.dtype) * spec.scale
+        demod = spec.demod_factors(params["conv"], s).to(x.dtype)
+        s = s.to(x.dtype)
+
+        w9 = _taps(wt)                                          # (K2,in,out)
+        xs_main = x * s[:, None, None, :ld]
+        w_main = w9[:, :ld].contiguous()
+        if groups:
+            y_main = fused_sphere_conv_grouped(xs_main, tables, w_main,
+                                               groups=groups)
+        else:
+            y_main = fused_sphere_conv(xs_main, tables, w_main)
+        cs = st_grid_sample_3x3(coords.to(x.dtype), grid, groups)
+        enc = encode_coords(cs, self.coord_dim).to(x.dtype)
+        enc = enc * s[:, None, None, ld:]
+        y_coords = conv2d_nhwc(enc, wt[:, ld:], stride=k)
+        return (y_main.to(x.dtype) + y_coords) * demod[:, None, None]
+
+
+@dataclass(frozen=True)
+class SphereSkipConv:
+    """TS skip-path sphere conv (RGB 3->3), identity init, LeakyReLU(0.01)."""
+
+    in_ch: int = 3
+    out_ch: int = 3
+    kernel_size: int = 3
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.in_ch * self.kernel_size ** 2)
+
+    def init(self, gen: torch.Generator) -> dict:
+        k = self.kernel_size
+        w = torch.zeros((self.out_ch, self.in_ch, k, k))
+        w[:, :, k // 2, k // 2] = 1.0
+        bound = 1.0 / math.sqrt(self.in_ch * k * k)
+        b = torch.rand((self.out_ch,), generator=gen) * (2 * bound) - bound
+        return {"weight": w, "bias": b}
+
+    def apply(self, params: dict, x: torch.Tensor, tables: dict,
+              groups: int = 0, margin: int = 6) -> torch.Tensor:
+        wt = params["weight"].to(x.dtype) * self.scale
+        y = st_tap_conv(x, tables, _taps(wt), margin=margin, groups=groups)
+        y = y + params["bias"].to(x.dtype)
+        return F.leaky_relu(y, 0.01)

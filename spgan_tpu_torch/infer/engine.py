@@ -1,0 +1,214 @@
+"""The close-loop panorama engine (counterpart of
+spgan_tpu/infer/engine.py: the single-device engine).
+
+One `generate` call
+
+  1. samples the latent and noise fields (or takes them injected),
+  2. pads the circular fields once, so every per-patch read is a slice,
+  3. runs the generator over the lattice in folded batches of
+     `patch_chunk` positions x `batch` panoramas (wrap columns that are
+     bit-identical re-renders of base columns are rendered once),
+  4. scatters the patches into the meta image in the reference's
+     row-major overwrite order.
+
+The sphere grids and row-offset tables depend only on the lattice plan, so
+they are computed once, at construction, on the host in float32 (as the
+JAX package computes them) and kept on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from spgan_tpu_torch.device import resolve
+from spgan_tpu_torch.geometry.coords import CoordsPartial
+from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
+                                                  sphere_patch_grid_batch)
+from spgan_tpu_torch.infer.stitcher import LatticePlan
+from spgan_tpu_torch.models.generator import (Generator, skip_margin,
+                                              tables_to)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class PanoramaEngine:
+    g: Generator
+    plan: LatticePlan
+    batch: int
+    patch_chunk: int = 4
+    grid_partial: float = 0.6667
+    compute_dtype: str = "float32"
+    dedup_wrap: bool = True  # render the close-loop wrap columns once
+    device: Optional[Union[str, torch.device]] = None  # default: cuda
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
+        plan = self.plan
+        P = plan.num_patches
+        # Close-loop wrap columns (j >= num_steps_w_min) are bit-identical
+        # re-renders of columns j - num_steps_w_min: same cp, same circular
+        # field windows.  Render each distinct column once; the scatter
+        # writes the seam with the values the full render would write.
+        if plan.close_loop and self.dedup_wrap and self._wrap_cols_dedupable():
+            nw, nwm = plan.num_steps_w, plan.num_steps_w_min
+            self._render_idx = np.array(
+                [p for p in range(P) if p % nw < nwm], np.int64)
+            self._full_map = np.array(
+                [(p // nw) * nwm + (p % nw) % nwm for p in range(P)], np.int64)
+        else:
+            self._render_idx = np.arange(P, dtype=np.int64)
+            self._full_map = np.arange(P, dtype=np.int64)
+        n = len(self._render_idx)
+        if n % self.patch_chunk:
+            self.patch_chunk = max(c for c in range(1, self.patch_chunk + 1)
+                                   if n % c == 0)
+        dev = self.device
+        self._coords_field = torch.as_tensor(
+            self.g.ss.coord_grid.test_field(plan.z_field_h, plan.z_field_w),
+            device=dev)
+
+        def cp_of(idx):
+            return CoordsPartial.from_scalars(
+                plan.cp_scalars[idx], plan.x_total, plan.y_total,
+                self.grid_partial)
+
+        cp = cp_of(self._render_idx)
+        ss_sizes = self.g.ss.layer_sizes(plan.window)
+        self._ss_grids = [sphere_patch_grid_batch(cp, s, s).to(dev)
+                          for s in ss_sizes]
+        self._ss_tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
+                           for s in ss_sizes]
+        # skip convs: exact per-size shift margins over the whole plan (the
+        # integer column shifts grow with the layer size)
+        skip_sizes = self.g.ts.skip_sizes()
+        cp_all = cp_of(np.arange(P))
+        self._skip_margins = [
+            skip_margin(sphere_offset_tables_batch(cp_all, s, s))
+            for s in skip_sizes]
+        self._skip_tables = [
+            tables_to(sphere_offset_tables_batch(cp, s, s), dev)
+            for s in skip_sizes]
+
+    def _wrap_cols_dedupable(self) -> bool:
+        """Wrap column j is a bit-identical re-render of base column
+        j - num_steps_w_min iff its cp scalars are exactly equal (its
+        z/noise slice starts are congruent by construction).  Fails for
+        narrow panoramas where a base column's own window wraps: the
+        reference's circular flag then differs between the two."""
+        plan = self.plan
+        nw, nwm = plan.num_steps_w, plan.num_steps_w_min
+        cps = plan.cp_scalars.reshape(plan.num_steps_h, nw, 5)
+        return all(np.array_equal(cps[:, j], cps[:, j - nwm])
+                   for j in range(nwm, nw))
+
+    # ----------------------------------------------------------------
+    def sample_fields(self, gen: torch.Generator):
+        """Latent + noise fields for one batch of panoramas, drawn from
+        `gen` (a generator on the engine's device)."""
+        plan = self.plan
+        kw = dict(generator=gen, device=self.device)
+        gl = torch.randn((self.batch, 2, self.g.ts.global_dim), **kw)
+        gl[:, 1] = gl[:, 0]  # no mixing at test
+        z_field = torch.randn((self.batch, plan.z_field_h, plan.z_field_w,
+                               self.g.ts.local_dim), **kw)
+        noises = [torch.randn((self.batch, h, w, 1), **kw)
+                  for h, w in plan.noise_sizes]
+        return gl, z_field, noises
+
+    # ----------------------------------------------------------------
+    def render_chunk(self, params, styles, gz, z_pad, coords_pad, noises_pad,
+                     ci: int) -> torch.Tensor:
+        """Render rendered-positions [ci*chunk, (ci+1)*chunk) x `batch`
+        panoramas in ONE folded generator call (chunk-major fold: sample
+        q*batch + b is panorama b at the q-th position).  Returns
+        (chunk, batch, patch, patch, 3) in the compute dtype."""
+        plan = self.plan
+        g = self.g
+        B, chunk, win = self.batch, self.patch_chunk, plan.window
+        cdt = _DTYPES[self.compute_dtype]
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        pos = self._render_idx[sl]
+
+        zw = torch.stack([z_pad[:, r:r + win, c:c + win]
+                          for r, c in plan.z_starts[pos]])
+        zw = zw.reshape(chunk * B, win, win, -1).to(cdt)
+        cw = torch.stack([coords_pad[r:r + win, c:c + win]
+                          for r, c in plan.z_starts[pos]])
+        cw = cw.repeat_interleave(B, dim=0)           # (chunk*B, win, win, 3)
+        layer_noises = []
+        for li, sz in enumerate(plan.geom.outfeat_sizes):
+            nw = torch.stack([noises_pad[li][:, r:r + sz, c:c + sz]
+                              for r, c in plan.noise_starts[li][pos]])
+            layer_noises.append(nw.reshape(chunk * B, sz, sz, 1).to(cdt))
+
+        grids = [gr[sl] for gr in self._ss_grids]
+        tables = [{k: v[sl] for k, v in t.items()} for t in self._ss_tables]
+        skip_tables = [{k: v[sl] for k, v in t.items()}
+                       for t in self._skip_tables]
+        gz_t = gz.repeat(chunk, 1).to(cdt)
+        styles_t = styles.repeat(chunk, 1, 1).to(cdt)
+        structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
+                               groups=chunk)
+        img = g.ts.synthesize(params["ts"], structure, styles_t, layer_noises,
+                              skip_tables, self._skip_margins, groups=chunk)
+        patch_sz = plan.geom.outfeat_sizes[-1]
+        return img.reshape(chunk, B, patch_sz, patch_sz, 3)
+
+    @torch.inference_mode()
+    def _render(self, params, gl, z_field, noises) -> torch.Tensor:
+        """(len(_render_idx), B, patch, patch, 3) float32 patches."""
+        win = self.plan.window
+        z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
+        coords_pad = torch.cat(
+            [self._coords_field, self._coords_field[:, :win]], dim=1)
+        noises_pad = [torch.cat([n, n[:, :, :osz]], dim=2)
+                      for n, osz in zip(noises, self.plan.geom.outfeat_sizes)]
+        styles = self.g.build_styles(params, gl)      # (B, n_latent, D)
+        gz = gl[:, 0]
+        n_chunks = len(self._render_idx) // self.patch_chunk
+        return torch.cat([
+            self.render_chunk(params, styles, gz, z_pad, coords_pad,
+                              noises_pad, ci).float()
+            for ci in range(n_chunks)])
+
+    def _scatter(self, patches: torch.Tensor) -> torch.Tensor:
+        """Meta assembly in the reference's row-major overwrite order; wrap
+        columns write their base column's render, and a patch that runs
+        past the right edge wraps to column 0."""
+        plan = self.plan
+        patch_sz = plan.geom.outfeat_sizes[-1]
+        B = patches.shape[1]
+        meta = torch.zeros((B, plan.meta_h, plan.meta_w, 3),
+                           dtype=torch.float32, device=patches.device)
+        for p in range(plan.num_patches):
+            r, c_raw = int(plan.img_starts[p, 0]), int(plan.img_starts[p, 1])
+            patch = patches[int(self._full_map[p])]
+            c = c_raw % plan.meta_w
+            rows = slice(r, r + patch_sz)
+            if c + patch_sz <= plan.meta_w:
+                meta[:, rows, c:c + patch_sz] = patch
+            else:
+                split = plan.meta_w - c
+                meta[:, rows, c:] = patch[:, :, :split]
+                meta[:, rows, :patch_sz - split] = patch[:, :, split:]
+        return meta
+
+    # ----------------------------------------------------------------
+    def generate(self, params, gen: torch.Generator) -> torch.Tensor:
+        """One batch of meta images (B, meta_h, meta_w, 3), float32."""
+        return self.generate_from_fields(params, *self.sample_fields(gen))
+
+    @torch.inference_mode()
+    def generate_from_fields(self, params, gl, z_field, noises
+                             ) -> torch.Tensor:
+        return self._scatter(self._render(params, gl, z_field, noises))
+
+    def generate_patches(self, params, gl, z_field, noises) -> torch.Tensor:
+        """(num_patches, B, patch, patch, 3): the full lattice, wrap columns
+        pointing at their base-column renders."""
+        patches = self._render(params, gl, z_field, noises)
+        return patches[torch.as_tensor(self._full_map, device=patches.device)]

@@ -1,0 +1,367 @@
+"""The SP-GAN generator: structure synthesizer (spherical refiner) + texture
+synthesizer (no-padding StyleGAN2 chain with spherical skip convs).
+Counterpart of spgan_tpu/models/generator.py: the inference forward.
+
+Parameters are nested dicts/lists of float32 tensors with the JAX
+package's tree structure (so ``compat/from_jax.py`` carries weights across
+key for key); conv weights are OIHW and linear weights (out, in).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dfield
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.geometry.coords import (CoordGrid, CoordsPartial,
+                                             encode_coords)
+from spgan_tpu_torch.geometry.sphere_conv import (SphereSkipConv,
+                                                  SphereStyledConv)
+from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
+                                                  sphere_patch_grid_batch)
+from spgan_tpu_torch.ops.linear import EqualLinear, pixel_norm
+from spgan_tpu_torch.ops.modulated import (ModulatedConv2d, StyledConv, ToRGB,
+                                           conv2d_nhwc)
+from spgan_tpu_torch.ops.spatial import (ConvSpec, derive_stitch_geometry,
+                                         out_size_chain)
+
+
+def _center_crop(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    ph = (x.shape[1] - h) // 2
+    pw = (x.shape[2] - w) // 2
+    return x[:, ph:ph + h, pw:pw + w, :]
+
+
+def _plain_conv1x1_init(gen: torch.Generator, in_ch: int, out_ch: int):
+    """torch nn.Conv2d default init (kaiming uniform a=sqrt(5)): the SS
+    residual projection `sc` is a plain conv."""
+    bound = 1.0 / np.sqrt(in_ch)
+    w = torch.rand((out_ch, in_ch, 1, 1), generator=gen) * (2 * bound) - bound
+    b = torch.rand((out_ch,), generator=gen) * (2 * bound) - bound
+    return {"weight": w, "bias": b}
+
+
+def _plain_conv1x1(params, x):
+    y = conv2d_nhwc(x, params["weight"].to(x.dtype))
+    return y + params["bias"].to(x.dtype)
+
+
+def tables_to(tables: dict, device) -> dict:
+    return {k: v.to(device).contiguous() for k, v in tables.items()}
+
+
+# ----------------------------------------------------------------------
+# Structure synthesizer
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StructureSynthesizer:
+    local_dim: int = 256
+    global_dim: int = 512
+    coord_dim: int = 3
+    n_layers: int = 4
+    unfold_radius: int = 3
+    coord_grid: CoordGrid = dfield(default_factory=CoordGrid)
+
+    @property
+    def unfold_size(self) -> int:
+        return self.n_layers * self.unfold_radius
+
+    def sphere_spec(self) -> SphereStyledConv:
+        return SphereStyledConv(
+            local_dim=self.local_dim, coord_dim=self.coord_dim,
+            out_ch=self.local_dim, style_dim=self.global_dim)
+
+    def planar_spec(self) -> StyledConv:
+        k = self.unfold_radius * 2 + 1
+        return StyledConv(
+            conv=ModulatedConv2d(
+                in_ch=self.local_dim + self.coord_dim, out_ch=self.local_dim,
+                kernel_size=k, style_dim=self.global_dim, demodulate=True,
+                no_zero_pad=True),
+            disable_noise=True)
+
+    def init(self, gen: torch.Generator) -> dict:
+        return {"blocks": [
+            {"sphere": self.sphere_spec().init(gen),
+             "sc": _plain_conv1x1_init(gen, self.local_dim, self.local_dim),
+             "planar": self.planar_spec().init(gen)}
+            for _ in range(self.n_layers)]}
+
+    def layer_sizes(self, in_size: int) -> List[int]:
+        """Feature size at each sphere conv (sphere convs preserve size, the
+        k=7 planar convs shrink by 2*unfold_radius)."""
+        return [in_size - 2 * self.unfold_radius * i
+                for i in range(self.n_layers)]
+
+    def apply(self, params: dict, global_z: torch.Tensor,
+              local_latent: torch.Tensor, coords: torch.Tensor,
+              grids: Sequence[torch.Tensor], tables_list: Sequence[dict],
+              groups: int = 0) -> torch.Tensor:
+        """global_z: (B, global_dim) raw z (the shipped ss_mapping is off);
+        local_latent: (B,S,S,local_dim); coords: (B,S,S,coord_dim) raw
+        indices; grids/tables_list: per sphere layer, per patch (shared by
+        B//groups samples when groups > 0)."""
+        h = local_latent
+        sphere = self.sphere_spec()
+        planar = self.planar_spec()
+        for i, blk in enumerate(params["blocks"]):
+            c = _center_crop(coords, h.shape[1], h.shape[2])
+            y = sphere.apply(blk["sphere"], h, global_z, c, grids[i],
+                             tables_list[i], groups=groups)
+            y = F.leaky_relu(y, 0.01)
+            h = y + _plain_conv1x1(blk["sc"], h)
+            c = _center_crop(coords, h.shape[1], h.shape[2])
+            enc = encode_coords(c, self.coord_dim).to(h.dtype)
+            h = planar.apply(blk["planar"], torch.cat([h, enc], -1), global_z)
+        return h
+
+
+# ----------------------------------------------------------------------
+# Texture synthesizer
+# ----------------------------------------------------------------------
+
+def ts_conv_plan(out_res: int, ts_input_size: int, channel_multiplier: int,
+                 channel_base: int = 512
+                 ) -> Tuple[List[dict], List[dict], Dict[int, int]]:
+    """conv specs / to-rgb specs / sphere-skip map per output resolution.
+    channel_base scales every width (512 in the shipped model)."""
+    cm = channel_multiplier
+    s = channel_base / 512.0
+
+    def c(v):
+        return max(8, int(round(v * s)))
+
+    if ts_input_size != 11:
+        raise NotImplementedError(f"ts_input_size={ts_input_size}")
+    base = [c(512)] * 6 + [c(256 * cm)] * 2
+    ext = [c(128 * cm), c(64 * cm), c(32 * cm), c(16 * cm)]
+    res_to_layers = {101: 8, 197: 10, 389: 12, 773: 14, 1541: 16}
+    if out_res not in res_to_layers:
+        raise NotImplementedError(f"no arch for out_res={out_res}")
+    n = res_to_layers[out_res]
+    chans = list(base)
+    for i in range((n - 8) // 2):
+        chans += [ext[i], ext[i]]
+    convs = [dict(out_ch=ch, upsample=(i % 2 == 0))
+             for i, ch in enumerate(chans[:n])]
+    to_rgbs = [dict(src=s_, tgt=s_ + 2) for s_ in range(1, n - 2, 2)]
+    to_rgbs.append(dict(src=n - 1, tgt=n))
+    i2j = {101: {3: 0, 5: 1, 7: 2}, 197: {3: 0, 5: 1, 7: 2, 9: 3}}.get(
+        out_res, {})
+    return convs, to_rgbs, i2j
+
+
+@dataclass(frozen=True)
+class TextureSynthesizer:
+    out_res: int = 101
+    ts_input_size: int = 11
+    local_dim: int = 256
+    global_dim: int = 512
+    n_mlp: int = 8
+    channel_multiplier: int = 2
+    channel_base: int = 512
+    no_zero_pad: bool = True
+    blur_kernel: Tuple[float, ...] = (1.0, 2.0, 1.0)
+
+    def plan(self):
+        return ts_conv_plan(self.out_res, self.ts_input_size,
+                            self.channel_multiplier, self.channel_base)
+
+    @property
+    def n_latent(self) -> int:
+        return len(self.plan()[0]) + 1
+
+    def conv_specs_spatial(self) -> List[ConvSpec]:
+        return [ConvSpec(upsample=c["upsample"],
+                         blur_len=len(self.blur_kernel))
+                for c in self.plan()[0]]
+
+    def stitch_geometry(self):
+        return derive_stitch_geometry(self.conv_specs_spatial(),
+                                      self.ts_input_size)
+
+    def skip_sizes(self) -> List[int]:
+        """Input spatial size of each sphere skip conv (= the previous
+        ToRGB's output size)."""
+        _, _, i2j = self.plan()
+        out_sizes = out_size_chain(self.conv_specs_spatial(),
+                                   self.ts_input_size)
+        return [int(out_sizes[src - 2]) for src in sorted(i2j)]
+
+    def mapping_spec(self) -> EqualLinear:
+        return EqualLinear(self.global_dim, self.global_dim, lr_mul=0.01,
+                           activation="fused_lrelu")
+
+    def _styled_convs(self) -> List[StyledConv]:
+        specs = []
+        in_ch = self.local_dim
+        for c in self.plan()[0]:
+            specs.append(StyledConv(
+                conv=ModulatedConv2d(
+                    in_ch=in_ch, out_ch=c["out_ch"], kernel_size=3,
+                    style_dim=self.global_dim, demodulate=True,
+                    upsample=c["upsample"], blur_kernel=self.blur_kernel,
+                    no_zero_pad=self.no_zero_pad)))
+            in_ch = c["out_ch"]
+        return specs
+
+    def _to_rgbs(self) -> List[ToRGB]:
+        convs, to_rgbs, _ = self.plan()
+        return [ToRGB(in_ch=convs[t["src"]]["out_ch"],
+                      style_dim=self.global_dim,
+                      blur_kernel=self.blur_kernel,
+                      no_zero_pad=self.no_zero_pad)
+                for t in to_rgbs]
+
+    def init(self, gen: torch.Generator) -> dict:
+        _, _, i2j = self.plan()
+        return {
+            "mapping": [self.mapping_spec().init(gen)
+                        for _ in range(self.n_mlp)],
+            "convs": [s.init(gen) for s in self._styled_convs()],
+            "to_rgbs": [s.init(gen) for s in self._to_rgbs()],
+            "sp_convs": [SphereSkipConv().init(gen) for _ in range(len(i2j))],
+        }
+
+    def mapping(self, params: dict, z: torch.Tensor) -> torch.Tensor:
+        h = pixel_norm(z)
+        spec = self.mapping_spec()
+        for p in params["mapping"]:
+            h = spec.apply(p, h)
+        return h
+
+    def synthesize(self, params: dict, structure_latent: torch.Tensor,
+                   styles: torch.Tensor,
+                   noises: Sequence[Optional[torch.Tensor]],
+                   skip_tables: Sequence[dict], skip_margins: Sequence[int],
+                   groups: int = 0) -> torch.Tensor:
+        """structure_latent: (B,11,11,local_dim); styles: (B, n_latent, D);
+        noises: one map per conv; skip_tables: per sphere skip conv, per
+        patch (shared by B//groups samples when groups > 0).
+
+        The skip graph: conv i runs, then when i == src of the pending
+        to_rgb, the sphere skip conv (for i in i2j) transforms the running
+        RGB skip before ToRGB(h, style[tgt], skip)."""
+        convs, to_rgbs, i2j = self.plan()
+        rgb_specs = self._to_rgbs()
+        sphere_skip = SphereSkipConv()
+        h = structure_latent
+        skip = None
+        cur_rgb = 0
+        for i, spec in enumerate(self._styled_convs()):
+            h = spec.apply(params["convs"][i], h, styles[:, i],
+                           noise=noises[i])
+            t = to_rgbs[cur_rgb]
+            if i == t["src"]:
+                if i in i2j:
+                    j = i2j[i]
+                    skip = sphere_skip.apply(
+                        params["sp_convs"][j], skip, skip_tables[j],
+                        groups=groups, margin=skip_margins[j])
+                skip = rgb_specs[cur_rgb].apply(
+                    params["to_rgbs"][cur_rgb], h, styles[:, t["tgt"]], skip)
+                cur_rgb += 1
+        return skip
+
+
+# ----------------------------------------------------------------------
+# Full generator
+# ----------------------------------------------------------------------
+
+def skip_margin(tables: dict) -> int:
+    """Exact column-shift margin of skip-conv tables: the tap conv needs
+    margin >= max(-sx) and margin - 1 >= max(sx); at least 6."""
+    return max(6, int(tables["sx"].abs().max()) + 1)
+
+
+@dataclass(frozen=True)
+class Generator:
+    ss: StructureSynthesizer
+    ts: TextureSynthesizer
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "Generator":
+        tp = cfg.train_params
+        if tp.ss_coord_all_layers != "each_layer":
+            raise ValueError(
+                f"ss_coord_all_layers={tp.ss_coord_all_layers!r} is not "
+                "supported; only 'each_layer' (the shipped mode)")
+        if not tp.use_ss or tp.styleGAN2_baseline:
+            raise NotImplementedError("the port supports the SS generator only")
+        if not tp.ss_disable_noise or tp.ss_mapping:
+            raise NotImplementedError(
+                "ss_disable_noise=False / ss_mapping=True are not ported")
+        ss = StructureSynthesizer(
+            local_dim=tp.local_latent_dim, global_dim=tp.global_latent_dim,
+            coord_dim=tp.coord_num_dir, n_layers=tp.ss_n_layers,
+            unfold_radius=tp.ss_unfold_radius,
+            coord_grid=CoordGrid(
+                ts_input_size=tp.ts_input_size,
+                ss_unfold_size=tp.ss_unfold_size,
+                vert_sample_size=tp.coord_vert_sample_size,
+                hori_occupy_ratio=tp.coord_hori_occupy_ratio,
+                vert_cut_pt=tp.coord_vert_cut_pt,
+                num_dir=tp.coord_num_dir,
+                partial=tp.partial,
+                continuous=tp.coord_continuous))
+        ts = TextureSynthesizer(
+            out_res=(tp.patch_size if tp.training_modality == "patch"
+                     else tp.full_size),
+            ts_input_size=tp.ts_input_size,
+            local_dim=tp.local_latent_dim, global_dim=tp.global_latent_dim,
+            n_mlp=tp.n_mlp, channel_multiplier=tp.channel_multiplier,
+            no_zero_pad=tp.ts_no_zero_pad,
+            blur_kernel=(1.0, 2.0, 1.0) if tp.ts_no_zero_pad
+            else (1.0, 3.0, 3.0, 1.0))
+        return cls(ss=ss, ts=ts)
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Random parameters from `gen` (a CPU generator, so the same seed
+        gives the same weights on every device), placed on `device`."""
+        from spgan_tpu_torch.device import resolve
+
+        dev = resolve(device)
+        params = {"ts": self.ts.init(gen), "ss": self.ss.init(gen)}
+        return _tree_to(params, dev)
+
+    def build_styles(self, params: dict, global_latent: torch.Tensor
+                     ) -> torch.Tensor:
+        """global_latent: (B, 2, D) -> (B, n_latent, D) w-space styles
+        (no style mixing at inference)."""
+        w1 = self.ts.mapping(params["ts"], global_latent[:, 0])
+        return w1[:, None].expand(-1, self.ts.n_latent, -1)
+
+    def apply(self, params: dict, *, global_latent: torch.Tensor,
+              local_latent: torch.Tensor, coords: torch.Tensor,
+              cp: CoordsPartial, noises: Sequence[torch.Tensor]
+              ) -> torch.Tensor:
+        """One patch per sample: global_latent (B,2,D), local_latent
+        (B,S,S,local_dim), coords (B,S,S,3) raw indices, cp one crop per
+        sample, noises one map per TS conv.  The SS sphere convs run on
+        per-sample offset tables (the per-sample sphere-conv kernel), the
+        skip convs on per-sample tap tables.  Returns (B,patch,patch,3)."""
+        dev = local_latent.device
+        sizes = self.ss.layer_sizes(local_latent.shape[1])
+        grids = [sphere_patch_grid_batch(cp, s, s).to(dev) for s in sizes]
+        tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
+                  for s in sizes]
+        skip = [sphere_offset_tables_batch(cp, s, s)
+                for s in self.ts.skip_sizes()]
+        structure = self.ss.apply(params["ss"], global_latent[:, 0],
+                                  local_latent, coords, grids, tables)
+        styles = self.build_styles(params, global_latent)
+        return self.ts.synthesize(
+            params["ts"], structure, styles, noises,
+            [tables_to(t, dev) for t in skip], [skip_margin(t) for t in skip])
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

@@ -1,0 +1,135 @@
+"""Fused spherical resample + stride-k conv: the CUDA kernel
+``csrc/sphere_conv.cu`` behind the JAX package's two entry points, and its
+plain PyTorch version.
+
+Replaces spgan_tpu/ops/pallas/sphere_kernel.py::fused_sphere_conv_grouped
+and ::fused_sphere_conv.  Every output row r, tap t samples the input at a
+uniform translation (r + dy(r,t), c + dx(r,t)) described by the row-offset
+tables of geometry/sphere_grid.sphere_offset_tables, so the op is an
+implicit GEMM (M = B*H*W pixels, K = 9*C, N = Cout) whose A tile is built on
+the fly from two input rows.  Compute-bound on an H100 at the engine's
+shapes (see the source's note).
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel, or the call raises.  Each wrapper counts its kernel launches in a
+plain integer attribute, ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_TABLE_DTYPES = {"y0": torch.int32, "y1": torch.int32, "wy": torch.float32,
+                 "sx": torch.int32, "fx": torch.float32}
+
+
+def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
+                            groups: int, margin: int = 6) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch ops: both lerps in float32, the
+    staged tap rounded once to bf16 when x and w9 are bf16, products and
+    tap sums in float32, output cast to x's dtype."""
+    B, H, W, C = x.shape
+    K2, _, Cout = w9.shape
+    G, M = groups, margin
+    Bg = B // G
+    mxu_bf16 = x.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
+    xg = x.reshape(G, Bg, H, W, C)
+    sx_all = torch.clamp(tables["sx"], -M, M - 1).to(torch.int64)
+    cols = torch.arange(W, device=x.device)
+    acc = torch.zeros((G * Bg * H * W, Cout), dtype=torch.float32,
+                      device=x.device)
+    for t in range(K2):
+        y0 = tables["y0"][:, :, t].to(torch.int64)[:, None, :, None, None]
+        y1 = tables["y1"][:, :, t].to(torch.int64)[:, None, :, None, None]
+        wy = tables["wy"][:, :, t].float()[:, None, :, None, None]
+        fx = tables["fx"][:, :, t].float()[:, None, :, None, None]
+        r0 = torch.take_along_dim(xg, y0, dim=2).float()
+        r1 = torch.take_along_dim(xg, y1, dim=2).float()
+        mixed = r0 * (1.0 - wy) + r1 * wy                   # (G,Bg,H,W,C)
+        c0 = cols + sx_all[:, :, t, None]                   # (G,H,W)
+        i0 = torch.clamp(c0, 0, W - 1)[:, None, :, :, None]
+        i1 = torch.clamp(c0 + 1, 0, W - 1)[:, None, :, :, None]
+        tap = (torch.take_along_dim(mixed, i0, dim=3) * (1.0 - fx)
+               + torch.take_along_dim(mixed, i1, dim=3) * fx)
+        if mxu_bf16:
+            tap = tap.to(torch.bfloat16).float()
+        acc = acc + tap.reshape(-1, C) @ w9[t].float()
+    return acc.reshape(B, H, W, Cout).to(x.dtype)
+
+
+def _launch(x: torch.Tensor, tables: dict, w9: torch.Tensor, groups: int,
+            margin: int) -> torch.Tensor:
+    """Check the operands and launch csrc/sphere_conv.cu on the current
+    stream; raises on anything the kernel does not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"sphere conv kernel needs CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or w9.dtype != x.dtype:
+        raise ValueError(f"x/w9 must both be float32 or bfloat16, got "
+                         f"{x.dtype}/{w9.dtype}")
+    if x.ndim != 4 or w9.ndim != 3 or w9.shape[1] != x.shape[3]:
+        raise ValueError(f"shapes x {tuple(x.shape)} w9 {tuple(w9.shape)}")
+    B, H, W, C = x.shape
+    K2, _, Cout = w9.shape
+    if groups <= 0 or B % groups:
+        raise ValueError(f"batch {B} is not a multiple of groups {groups}")
+    if C % 8 or Cout % 8:
+        raise ValueError(f"C={C} and Cout={Cout} must be multiples of 8")
+    if margin < 1:
+        raise ValueError(f"margin {margin} < 1")
+    args = []
+    for k, dt in _TABLE_DTYPES.items():
+        t = tables[k]
+        if (t.dtype != dt or t.shape != (groups, H, K2) or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"table {k}: need contiguous {dt} "
+                             f"{(groups, H, K2)} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        args.append(t)
+    for name, t in (("x", x), ("w9", w9)):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned, on "
+                             f"{x.device}")
+    from spgan_tpu_torch.ops.kernels import build
+
+    lib = build.load("sphere_conv")
+    fn = lib.sphere_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in args), w9.data_ptr(),
+                 out.data_ptr(), B, H, W, C, Cout, K2, B // groups, margin,
+                 1 if x.dtype == torch.bfloat16 else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"sphere_conv_launch failed: cudaError {err}")
+    return out
+
+
+def fused_sphere_conv_grouped(x: torch.Tensor, tables: dict, w9: torch.Tensor,
+                              groups: int, margin: int = 6) -> torch.Tensor:
+    """x: (B,H,W,C) [pre-scaled by the per-sample style] with B = groups*Bg;
+    tables: dict of (groups, H, K2), each shared by Bg consecutive samples
+    (all panoramas folded at one lattice position); w9: (K2,C,Cout).
+    Returns (B,H,W,Cout) before demodulation, in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_sphere_conv_plain(x, tables, w9, groups, margin)
+    out = _launch(x, tables, w9, groups, margin)
+    fused_sphere_conv_grouped.launches += 1
+    return out
+
+
+def fused_sphere_conv(x: torch.Tensor, tables: dict, w9: torch.Tensor,
+                      margin: int = 6) -> torch.Tensor:
+    """Per-sample tables: dict of (B,H,K2).  Otherwise as
+    fused_sphere_conv_grouped."""
+    if x.device.type == "cpu":
+        return fused_sphere_conv_plain(x, tables, w9, x.shape[0], margin)
+    out = _launch(x, tables, w9, x.shape[0], margin)
+    fused_sphere_conv.launches += 1
+    return out
+
+
+fused_sphere_conv_grouped.launches = 0
+fused_sphere_conv.launches = 0
