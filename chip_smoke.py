@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build   every kernel in spgan_tpu_torch/csrc/ with nvcc (sm_90a)
-  2. kernels each kernel against its plain PyTorch version on the card, at
-             the SS shapes of the panorama engine (B=64, C=Cout=256,
-             H=W in {35,29,23,17}), float32 (TF32 off) and bf16; kernel
-             and plain times at the bench shapes (bf16)
+  1. build   every kernel in spgan_tpu_torch/csrc/ with nvcc (sm_90a), one
+             nvcc per source, all started together
+  2. kernels each kernel against its plain PyTorch version on the card:
+             the sphere conv at the SS shapes of the panorama engine
+             (B=64, C=Cout=256, H=W in {35,29,23,17}), the tap sampler at
+             the SS shapes of the training step (B=16, C=259, the same
+             H), float32 (TF32 off) and bf16; kernel, plain, bound and
+             library times
   3. parity  a tiny close-loop engine on cuda (kernel) vs the same engine
              on cpu (plain version), same weights and fields, float32
   4. engine  the shipped model at full width (Config() defaults, random
@@ -17,6 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
              the grouped kernel must launch 48 times per generate
   5. patch   Generator.apply at full width on 16 per-sample crops: the
              per-sample kernel must launch once per SS layer
+  6. train-parity  the phases of a tiny training step (D, R1, G, PPL) on
+             cuda vs cpu from the same weights and injected draws: losses
+             and gradients, float32, TF32 off
+  7. train   the shipped training step at full width (Config(): batch 16,
+             float32, synthetic data): one warm-up step, timed plain steps
+             and one R1+PPL step; the tap sampler must launch 8 times per
+             plain step and 12 times on the PPL step; one traced step
 Then prints the kernels JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -30,9 +40,11 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12   # dense bf16, H100 SXM data sheet
+H100_F32_FLOPS = 67e12     # float32 outside the tensor cores, data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 SS_SIZES = (35, 29, 23, 17)
 TIMED_GENERATES = 5
+TIMED_TRAIN_STEPS = 3
 
 
 def card() -> str:
@@ -223,6 +235,7 @@ def phase_engine(card_str):
     from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
     from spgan_tpu_torch.models.generator import Generator
     from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
 
     cfg = Config()
     g = Generator.from_config(cfg)
@@ -240,6 +253,7 @@ def phase_engine(card_str):
     torch.cuda.reset_peak_memory_stats()
     sk.fused_sphere_conv_grouped.launches = 0
     sk.fused_sphere_conv.launches = 0
+    ss.sphere_sample_taps.launches = 0
     per_ms = []
     for _ in range(TIMED_GENERATES):
         t0 = time.perf_counter()
@@ -247,14 +261,16 @@ def phase_engine(card_str):
         torch.cuda.synchronize()
         per_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches}
+                "fused_sphere_conv": sk.fused_sphere_conv.launches,
+                "sphere_sample_taps": ss.sphere_sample_taps.launches}
     dt = sum(per_ms) / 1e3
     want = (cfg.task.batch_size, 581, 768, 3)
     if tuple(meta.shape) != want or not bool(meta.isfinite().all()):
         raise AssertionError(f"meta {tuple(meta.shape)} (want {want}), "
                              f"finite={bool(meta.isfinite().all())}")
     per_gen = launches["fused_sphere_conv_grouped"] / TIMED_GENERATES
-    if per_gen != 48 or launches["fused_sphere_conv"]:
+    if (per_gen != 48 or launches["fused_sphere_conv"]
+            or launches["sphere_sample_taps"]):
         raise AssertionError(f"kernel launches per generate {launches} / "
                              f"{TIMED_GENERATES} (want 48 grouped)")
     panos = TIMED_GENERATES * cfg.task.batch_size / dt
@@ -265,7 +281,7 @@ def phase_engine(card_str):
           f"{', '.join(f'{t:.1f}' for t in per_ms)} ms), peak memory "
           f"{peak:.2f} GiB, meta {tuple(meta.shape)} finite, "
           f"{per_gen:.0f} grouped-kernel launches per generate")
-    busy_ms = trace_generate(lambda: eng.generate(params, gen))
+    busy_ms = trace(lambda: eng.generate(params, gen), "generate")
     untraced_ms = float(np.median(per_ms))
     print(f"[trace] device busy {busy_ms:.1f} ms of the untraced median "
           f"generate {untraced_ms:.1f} ms: idle share "
@@ -273,10 +289,10 @@ def phase_engine(card_str):
     return {k: v // TIMED_GENERATES for k, v in launches.items()}
 
 
-def trace_generate(run, top=12):
-    """Device time by kernel over one generate (torch.profiler), and the
-    device's busy share of the generate's wall time under the profiler.
-    Returns the device-busy milliseconds."""
+def trace(run, what, top=12):
+    """Device time by kernel over one call of `run` (torch.profiler), and
+    the device's busy share of its wall time under the profiler.  Returns
+    the device-busy milliseconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -288,7 +304,7 @@ def trace_generate(run, top=12):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[trace] one generate under the profiler: wall {wall_ms:.1f} ms, "
+    print(f"[trace] one {what} under the profiler: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:top]:
@@ -305,6 +321,7 @@ def phase_patch():
     from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
     from spgan_tpu_torch.models.generator import Generator
     from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.ops.spatial import out_size_chain
 
     cfg = Config()
@@ -327,21 +344,287 @@ def phase_patch():
               for s in out_size_chain(g.ts.conv_specs_spatial(), 11)]
     sk.fused_sphere_conv_grouped.launches = 0
     sk.fused_sphere_conv.launches = 0
+    ss.sphere_sample_taps.launches = 0
     with torch.inference_mode():
         img = g.apply(params, global_latent=gl, local_latent=z,
                       coords=torch.as_tensor(coords).cuda(), cp=cp,
-                      noises=noises)
+                      noises=noises)["gen"]
     torch.cuda.synchronize()
     launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches}
+                "fused_sphere_conv": sk.fused_sphere_conv.launches,
+                "sphere_sample_taps": ss.sphere_sample_taps.launches}
     if tuple(img.shape) != (B, 101, 101, 3) or not bool(img.isfinite().all()):
         raise AssertionError(f"patch {tuple(img.shape)} finite="
                              f"{bool(img.isfinite().all())}")
     if launches != {"fused_sphere_conv_grouped": 0,
-                    "fused_sphere_conv": g.ss.n_layers}:
+                    "fused_sphere_conv": g.ss.n_layers,
+                    "sphere_sample_taps": 0}:
         raise AssertionError(f"patch-forward launches {launches}")
     print(f"[patch] Generator.apply batch {B} bf16: {tuple(img.shape)} "
           f"finite, launches {launches}")
+    return launches
+
+
+def training_crops(B, H, seed):
+    """Offset tables and the equivalent (3H,3W) sampling grid of B random
+    training crops (x_total 45, y_total 140, grid_partial 0.8) at size H."""
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.geometry.sphere_grid import (
+        sphere_offset_tables_batch, sphere_patch_grid_batch)
+    from spgan_tpu_torch.models.generator import Generator
+
+    grid = Generator.from_config(Config()).ss.coord_grid
+    _, _, cp = grid.sample_training(
+        torch.Generator(device="cuda").manual_seed(seed), B)
+    tables = {k: v.contiguous()
+              for k, v in sphere_offset_tables_batch(cp, H, H).items()}
+    return tables, sphere_patch_grid_batch(cp, H, H)
+
+
+def phase_sample_kernel():
+    """The tap sampler (B3) at the training step's SS shapes."""
+    import torch.nn.functional as F
+
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    B, C = 16, 259
+    rng = np.random.RandomState(1)
+    res = {}
+    for H in SS_SIZES:
+        tables, grid = training_crops(B, H, seed=H)
+        x32 = torch.as_tensor(rng.randn(B, H, H, C).astype(np.float32)).cuda()
+        r = res[H] = {"err": 0.0}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            ref = ss.sphere_sample_taps_plain(x, tables)
+            got = ss.sphere_sample_taps(x, tables)
+            torch.cuda.synchronize()
+            # the same float32 lerps op by op and one cast: exact
+            err = check_close(f"sphere_sample_taps H={H} {dtype}", got, ref,
+                              0.0, 0.0)
+            r["err"] = max(r["err"], err)
+            print(f"[kernels] sphere_sample_taps H={H} {str(dtype)[6:]}: "
+                  f"max_abs_err {err:.3e} (exact)")
+        # times in float32, the shipped training dtype
+        got = ss.sphere_sample_taps(x32, tables)
+
+        def library():
+            # one PyTorch call computing the same samples: bilinear
+            # grid_sample over the interleaved (3H,3W) grid, border
+            # padding, then the tap-major permute
+            y = F.grid_sample(x32.permute(0, 3, 1, 2), grid, mode="bilinear",
+                              padding_mode="border", align_corners=True)
+            return y.reshape(B, C, H, 3, H, 3).permute(0, 3, 5, 2, 4, 1) \
+                .reshape(B, 9, H, H, C)
+
+        r["library_err"] = float((library() - got).abs().max())
+        r["ms"] = time_ms(lambda: ss.sphere_sample_taps(x32, tables), 20)
+        r["plain_ms"] = time_ms(
+            lambda: ss.sphere_sample_taps_plain(x32, tables), 3, warmup=1)
+        r["library_ms"] = time_ms(library, 20)
+        # each input element read once, nine written; the tables; three
+        # lerps (4 float32 ops each) per output element
+        nbytes = 10 * B * H * H * C * 4 + 5 * B * H * 9 * 4
+        flops = 12.0 * 9 * B * H * H * C
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+        r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[kernels] sphere_sample_taps H={H} B={B} C={C} f32: "
+              f"{r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library grid_sample+permute "
+              f"{r['library_ms']:.4f} ms (max |diff| vs kernel "
+              f"{r['library_err']:.2e}, "
+              f"{'matched' if r['library_err'] < 1e-3 else 'DIFFERS'} "
+              f"at 1e-3)")
+    return res
+
+
+def tiny_train_models():
+    """Port config, G and D at the CPU tests' tiny widths (channel_base
+    16, D channels 16, 2 SS layers, batch 4)."""
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.models.discriminator import Discriminator
+    from spgan_tpu_torch.models.generator import Generator
+
+    cfg = tiny_config(Config)
+    tp = cfg.train_params
+    tp.batch_size = 4
+    tp.n_mlp = 1
+    g = Generator.from_config(cfg)
+    object.__setattr__(g.ts, "channel_base", 16)
+    d = Discriminator(patch_size=101, channel_multiplier=1, batch_size=4,
+                      linear_ch=16)
+    small = {k: 16 for k in d.channels()}
+    object.__setattr__(d, "channels", lambda: small)
+    return cfg, g, d
+
+
+def _moved(obj, dev):
+    """A TrainState, StepDraws or GDraws with every tensor moved to dev."""
+    import dataclasses
+
+    from spgan_tpu_torch.tree import tree_map
+
+    def mv(v):
+        if dataclasses.is_dataclass(v):
+            return _moved(v, dev)
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if isinstance(v, (dict, list)):
+            return tree_map(lambda t: t.to(dev), v)
+        return v
+
+    return dataclasses.replace(obj, **{f.name: mv(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})
+
+
+def phase_train_parity():
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.train.state import create_train_state
+    from spgan_tpu_torch.train.step import make_train_step
+
+    cfg, g, d = tiny_train_models()
+    step = make_train_step(cfg, g, d)
+    state = create_train_state(cfg, g, d, torch.Generator().manual_seed(0),
+                               device="cpu")
+    draws = step.draw(torch.Generator().manual_seed(1), do_ppl=True)
+    rng = np.random.RandomState(2)
+    real = torch.as_tensor(rng.randn(4, 101, 101, 3).astype(np.float32))
+    real_ac = torch.as_tensor(rng.uniform(-1, 1, (4, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st, dr = _moved(state, dev), _moved(draws, dev)
+        ss.sphere_sample_taps.launches = 0
+        gd, md = step.d_grads(st.params_g, st.params_d, real.to(dev),
+                              real_ac.to(dev), dr.d)
+        gr, r1 = step.r1_grads(st.params_d, real.to(dev))
+        gg, mg = step.g_grads(st.params_g, st.params_d, dr.g)
+        gp, pen, _, plen = step.ppl_grads(st.params_g, dr,
+                                          st.mean_path_length)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = 3 * g.ss.n_layers
+            if ss.sphere_sample_taps.launches != want:
+                raise AssertionError(
+                    f"tiny train phases on cuda: {ss.sphere_sample_taps.launches}"
+                    f" tap-sampler launches, want {want}")
+        out[dev] = ({**md, **mg, "r1": r1, "path": pen, "path_lengths": plen},
+                    {"d": gd, "r1": gr, "g": gg, "ppl": gp})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    worst = 0.0
+    for k, v in lc.items():
+        rel = abs(float(lg[k]) - float(v)) / max(abs(float(v)), 1e-12)
+        worst = max(worst, rel)
+        # float32 with TF32 off; the PPL penalty is quadratic in tiny path
+        # lengths and amplifies summation-order noise
+        tol = 1e-4 if k == "path" else 1e-5
+        if rel > tol:
+            raise AssertionError(f"tiny train {k}: cuda {float(lg[k])} vs "
+                                 f"cpu {float(v)} (rel {rel:.2e} > {tol})")
+    print(f"[train-parity] losses cuda vs cpu: worst rel diff {worst:.2e} "
+          f"(1e-5; path 1e-4)")
+    for phase in gc:
+        a = [t for t in gc[phase] if t is not None]
+        b = [t.cpu() for t in gg[phase] if t is not None]
+        scale = max(float(t.abs().max()) for t in a)
+        err = max(float((x - y).abs().max()) for x, y in zip(a, b)) / scale
+        # gradients summed over ~1e4-1e5 products (double backward for R1
+        # and PPL) in another order on each device
+        if err > 1e-5:
+            raise AssertionError(f"tiny train {phase} grads: cuda vs cpu "
+                                 f"rel-to-scale {err:.2e} > 1e-5")
+        print(f"[train-parity] {phase} grads ({len(a)} leaves): cuda vs cpu "
+              f"max |diff| / scale {err:.2e} (1e-5)")
+
+
+def phase_train(card_str):
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.data.pipeline import TrainPipeline
+    from spgan_tpu_torch.models.discriminator import Discriminator
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.train.state import create_train_state
+    from spgan_tpu_torch.train.step import make_train_step
+    from spgan_tpu_torch.tree import tree_leaves
+
+    cfg = Config()
+    tp = cfg.train_params
+    g, d = Generator.from_config(cfg), Discriminator.from_config(cfg)
+    state = create_train_state(cfg, g, d, torch.Generator().manual_seed(0),
+                               device="cuda")
+    step = make_train_step(cfg, g, d)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pipe = TrainPipeline(cfg, seed=0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(pipe).items()}
+               for _ in range(TIMED_TRAIN_STEPS + 4)]
+
+    def run(i, reg):
+        b = batches[i]
+        return step(state, b["patch"], b["ac_coords"], gen, do_r1=reg,
+                    do_ppl=reg)
+
+    def check(m, what):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise AssertionError(f"{what}: non-finite metrics {bad}")
+
+    t0 = time.perf_counter()
+    state, m = run(0, True)
+    torch.cuda.synchronize()
+    check(m, "warm-up step")
+    print(f"[train] warm-up R1+PPL step {time.perf_counter() - t0:.2f} s")
+    s0 = state
+    torch.cuda.reset_peak_memory_stats()
+    sk.fused_sphere_conv_grouped.launches = 0
+    sk.fused_sphere_conv.launches = 0
+    ss.sphere_sample_taps.launches = 0
+    per_ms, per_launch = [], []
+    for i in range(TIMED_TRAIN_STEPS + 1):
+        reg = i == TIMED_TRAIN_STEPS
+        n0 = ss.sphere_sample_taps.launches
+        t0 = time.perf_counter()
+        state, m = run(1 + i, reg)
+        torch.cuda.synchronize()
+        per_ms.append((time.perf_counter() - t0) * 1e3)
+        per_launch.append(ss.sphere_sample_taps.launches - n0)
+        check(m, f"step {i}")
+    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+                "fused_sphere_conv": sk.fused_sphere_conv.launches,
+                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    want = [2 * g.ss.n_layers] * TIMED_TRAIN_STEPS + [3 * g.ss.n_layers]
+    if per_launch != want or launches["fused_sphere_conv_grouped"] \
+            or launches["fused_sphere_conv"]:
+        raise AssertionError(f"tap-sampler launches per step {per_launch} "
+                             f"(want {want}), all {launches}")
+
+    def delta(a, b):
+        return max(float((x - y).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    d_g = delta(state.params_g, s0.params_g)
+    d_d = delta(state.params_d, s0.params_d)
+    d_ema = delta(state.params_g_ema, s0.params_g_ema)
+    if not (d_g > 0 and d_d > 0 and 0 < d_ema < d_g):
+        raise AssertionError(f"params moved G {d_g} D {d_d} EMA {d_ema}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain = per_ms[:TIMED_TRAIN_STEPS]
+    print(f"[train] {card_str}: Config() batch {tp.batch_size} "
+          f"{tp.compute_dtype}: plain step {np.mean(plain):.1f} ms "
+          f"(each {', '.join(f'{t:.1f}' for t in plain)}), R1+PPL step "
+          f"{per_ms[-1]:.1f} ms, peak memory {peak:.2f} GiB; tap-sampler "
+          f"launches per step {per_launch}; max |d| over the 4 steps: G "
+          f"{d_g:.3e}, D {d_d:.3e}, EMA {d_ema:.3e}")
+    print(f"[train] last metrics: "
+          f"{ {k: round(float(v), 4) for k, v in m.items()} }")
+    for i, (reg, what, untraced_ms) in enumerate((
+            (False, "plain train step", float(np.median(plain))),
+            (True, "R1+PPL train step", per_ms[-1]))):
+        busy_ms = trace(lambda: run(TIMED_TRAIN_STEPS + 2 + i, reg), what)
+        print(f"[trace] device busy {busy_ms:.1f} ms of the untraced {what} "
+              f"{untraced_ms:.1f} ms: idle share "
+              f"{100 * (1 - busy_ms / untraced_ms):.1f}%")
     return launches
 
 
@@ -358,9 +641,12 @@ def main():
           f"{torch.version.cuda}; python {sys.version.split()[0]}")
     phase_build()
     kern = phase_kernels()
+    sample = phase_sample_kernel()
     phase_parity()
     engine_launches = phase_engine(card_str)
     patch_launches = phase_patch()
+    phase_train_parity()
+    train_launches = phase_train(card_str)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -382,6 +668,21 @@ def main():
             "bound_by": per_h[35]["bound_by"],
             "library_ms": None,
         })
+    line.append({
+        "name": "sphere_sample_taps", "route": "cuda",
+        "source": "spgan_tpu_torch/csrc/sphere_sample.cu",
+        "replaces": "spgan_tpu/ops/pallas/sphere_sample.py:60",
+        # over the timed training run: 3 plain steps (8 each) + 1 R1+PPL
+        # step (12)
+        "launches": train_launches["sphere_sample_taps"],
+        "max_abs_err": max(r["err"] for r in sample.values()),
+        # one launch at each of the four SS shapes, B=16, C=259, float32
+        "ms": sum(r["ms"] for r in sample.values()),
+        "plain_ms": sum(r["plain_ms"] for r in sample.values()),
+        "bound_ms": sum(r["bound_ms"] for r in sample.values()),
+        "bound_by": sample[35]["bound_by"],
+        "library_ms": sum(r["library_ms"] for r in sample.values()),
+    })
     print(json.dumps({"kernels": line}))
     print(card_str)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""Carry generator parameters across from the JAX package.
+"""Carry parameters and training state across from the JAX package.
 
-Input: the JAX generator's parameter tree as nested dicts/lists of numpy
-arrays, or the flat ``a/b/0/c`` keys that spgan_tpu's ``save_params_npz``
-writes (an ``np.load``-ed .npz or any mapping).  Output: the port's
+Input: a JAX parameter tree (generator or discriminator) as nested
+dicts/lists of numpy arrays, or the flat ``a/b/0/c`` keys that spgan_tpu's
+``save_params_npz`` writes (an ``np.load``-ed .npz or any mapping); or a
+whole JAX TrainState (``train_state_from_jax``).  Output: the port's
 parameter tree, same keys, float32 tensors, with the two layout changes
 the port's modules expect:
 
@@ -68,3 +69,33 @@ def params_from_jax(tree_or_flat: Any, device=None) -> dict:
     if isinstance(tree, Mapping) and any("/" in k for k in tree.keys()):
         tree = unflatten({k: tree[k] for k in tree.keys()})
     return _tree_to(_convert(tree), resolve(device))
+
+
+def train_state_from_jax(state: Any, device=None):
+    """The port's TrainState from spgan_tpu's (its fields read as
+    attributes; leaves anything np.asarray takes): G, D and EMA params and
+    both Adam states (mu/nu in the params' layout, per-leaf int32 counts),
+    the step and the PPL running mean, on `device` (default cuda)."""
+    from spgan_tpu_torch.device import resolve
+    from spgan_tpu_torch.models.generator import _tree_to
+    from spgan_tpu_torch.train.state import AdamState, TrainState
+    from spgan_tpu_torch.tree import tree_map
+
+    dev = resolve(device)
+
+    def params(tree):
+        return _tree_to(_convert(tree), dev)
+
+    def adam(opt):
+        count = tree_map(lambda c: torch.tensor(np.asarray(c, np.int32)),
+                         opt.count)
+        return AdamState(mu=params(opt.mu), nu=params(opt.nu),
+                         count=_tree_to(count, dev))
+
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        params_g=params(state.params_g), params_d=params(state.params_d),
+        params_g_ema=params(state.params_g_ema),
+        opt_g=adam(state.opt_g), opt_d=adam(state.opt_d),
+        mean_path_length=torch.tensor(
+            np.asarray(state.mean_path_length, np.float32)).to(dev))

@@ -1,5 +1,6 @@
 """Spherical coordinate fields and crop descriptors (counterpart of
-spgan_tpu/geometry/coords.py: the inference subset)."""
+spgan_tpu/geometry/coords.py: the test field and the training crops with
+their shared jitter, ac labels and crop descriptors; num_dir 3)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -97,3 +98,68 @@ class CoordGrid:
     def test_field(self, height: int, width: int) -> np.ndarray:
         """Deterministic coordinate field over the full inference latent."""
         return self.base_grid(height=height, width=width)
+
+    def perturb_ranges(self) -> np.ndarray:
+        """Half-pixel jitter amplitude per channel."""
+        g = self.base_grid()
+        if self.num_dir != 3:
+            raise NotImplementedError(f"num_dir={self.num_dir}")
+        return np.array([abs(g[0, 0, 0] - g[1, 0, 0]) / 2,
+                         abs(g[0, 0, 1] - g[0, 1, 1]) / 2,
+                         abs(g[0, 0, 2] - g[0, 1, 2]) / 2], np.float32)
+
+    # ---- training-time sampling ---------------------------------------
+    def draw_training(self, gen: torch.Generator, batch: int):
+        """The random part of sample_training: crop origins x_st (B,),
+        y_st (B,) (int64) and the batch-shared jitter (num_dir,) float32,
+        drawn from `gen` on its device."""
+        dev = gen.device
+        x_st = torch.randint(0, self.vert_sample_size, (batch,),
+                             generator=gen, device=dev)
+        y_st = torch.randint(0, self.size_y, (batch,), generator=gen,
+                             device=dev)
+        pr = torch.as_tensor(self.perturb_ranges(), device=dev)
+        if self.continuous:
+            u = torch.rand((pr.shape[0],), generator=gen, device=dev)
+            jitter = (u * 2.0 - 1.0) * pr
+        else:
+            jitter = torch.zeros_like(pr)
+        return x_st, y_st, jitter
+
+    def training_crops(self, x_st: torch.Tensor, y_st: torch.Tensor,
+                       jitter: torch.Tensor):
+        """35x35 crops of the constant field at (x_st, y_st), wrapping
+        horizontally, plus ONE jitter shared by the batch.  Returns (coords
+        (B,35,35,C) raw, ac_coords (B,C), CoordsPartial) on x_st's device."""
+        size = self.ss_spatial_size
+        dev = x_st.device
+        base = torch.as_tensor(self.base_grid(), device=dev)     # (45,140,C)
+        padded = torch.cat([base, base[:, :size]], dim=1)        # wrap margin
+        ar = torch.arange(size, device=dev)
+        rows = (x_st[:, None] + ar)[:, :, None]                   # (B,35,1)
+        cols = (y_st[:, None] + ar)[:, None, :]                   # (B,1,35)
+        coords = padded[rows, cols] + jitter.to(base.dtype)
+        return (coords, self._ac_coords(x_st, y_st),
+                self._coords_partial(x_st, y_st, size, size))
+
+    def sample_training(self, gen: torch.Generator, batch: int):
+        """Random 35x35 crops of the constant field with wrap + shared
+        jitter: (coords (B,35,35,C) raw, ac_coords (B,C), CoordsPartial)."""
+        return self.training_crops(*self.draw_training(gen, batch))
+
+    def _ac_coords(self, x_st, y_st):
+        nx = (x_st / (self.vert_sample_size - 1)) * 2.0 - 1.0
+        ny = (y_st / (self.size_y - 1)) * 2.0 - 1.0
+        return torch.stack([nx, torch.cos(ny * np.pi), torch.sin(ny * np.pi)],
+                           dim=-1).float()
+
+    def _coords_partial(self, x_st, y_st, x_size, y_size) -> CoordsPartial:
+        # circular iff the y window wraps; training grids use
+        # grid_partial=0.8 (a faithful quirk of the reference)
+        return CoordsPartial(
+            p_x_st=x_st / self.size_x,
+            p_x_ed=(x_st + x_size - 1) / self.size_x,
+            p_y_st=y_st / self.size_y,
+            p_y_ed=(y_st + y_size - 1) / self.size_y,
+            circular=(y_st + y_size > self.size_y).float(),
+            x_total=self.size_x, y_total=self.size_y, grid_partial=0.8)

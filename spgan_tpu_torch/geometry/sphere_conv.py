@@ -1,11 +1,17 @@
 """Spherical convolutions on the row-offset-table path (counterpart of
 spgan_tpu/geometry/sphere_conv.py: the fused-tables branches the panorama
-engine runs).
+engine runs and the sample-tables branch training runs).
 
-* SphereStyledConv: the SS modulated sphere conv.  The 256 latent channels
-  go through the fused sphere-conv kernel (ops/kernels/sphere_kernel.py);
-  the 3 coordinate channels are grid-sampled, re-encoded and convolved
-  with stride 3, exactly as the JAX package does.
+* SphereStyledConv, tables_mode "fused" (inference): the 256 latent
+  channels go through the fused sphere-conv kernel
+  (ops/kernels/sphere_kernel.py); the 3 coordinate channels are
+  grid-sampled, re-encoded and convolved with stride 3, exactly as the JAX
+  package does.
+* SphereStyledConv, tables_mode "sample" (training): latent and coordinate
+  channels together go through the straight-through tap sampler
+  (ops/kernels/sphere_sample.py), the coordinate taps are re-encoded, and
+  one einsum over (tap, channel) applies the weight, through which weight
+  and style gradients flow exactly.
 * SphereSkipConv: the TS skip-path sphere conv (RGB 3->3) through the tap
   conv (ops/grid_sample.st_tap_conv), identity init, LeakyReLU(0.01).
 """
@@ -13,6 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +28,7 @@ from spgan_tpu_torch.geometry.coords import encode_coords
 from spgan_tpu_torch.ops.grid_sample import st_grid_sample_3x3, st_tap_conv
 from spgan_tpu_torch.ops.kernels.sphere_kernel import (
     fused_sphere_conv, fused_sphere_conv_grouped)
+from spgan_tpu_torch.ops.kernels.sphere_sample import st_sample_taps
 from spgan_tpu_torch.ops.modulated import ModulatedConv2d, conv2d_nhwc
 
 
@@ -56,13 +64,15 @@ class SphereStyledConv:
         return {"conv": self.conv_spec().init(gen)}
 
     def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor,
-              coords: torch.Tensor, grid: torch.Tensor, tables: dict,
-              groups: int = 0) -> torch.Tensor:
+              coords: torch.Tensor, grid: Optional[torch.Tensor],
+              tables: dict, groups: int = 0,
+              tables_mode: str = "fused") -> torch.Tensor:
         """x: (B,H,W,local_dim); coords: (B,H,W,coord_dim) raw indices;
         style: (B,style_dim).  grid (G,3H,3W,2) and tables (dict of
         (G,H,K2)) describe G patches, each shared by B//G consecutive
         samples when groups == G > 0; with groups == 0 there is one per
-        sample.  Output (B,H,W,out_ch), size preserving."""
+        sample.  tables_mode "sample" takes per-sample tables and no grid.
+        Output (B,H,W,out_ch), size preserving."""
         k = self.kernel_size
         ld = self.local_dim
         spec = self.conv_spec()
@@ -72,6 +82,19 @@ class SphereStyledConv:
         s = s.to(x.dtype)
 
         w9 = _taps(wt)                                          # (K2,in,out)
+        if tables_mode == "sample":
+            if groups:
+                raise ValueError("tables_mode 'sample' takes per-sample tables")
+            both = torch.cat([x, coords.to(x.dtype)], dim=-1)
+            taps = st_sample_taps(both, tables)                 # (B,K2,H,W,in)
+            t_c = encode_coords(taps[..., ld:], self.coord_dim)
+            taps = torch.cat([taps[..., :ld], t_c.to(x.dtype)], dim=-1)
+            taps = taps * s[:, None, None, None, :]
+            y = torch.einsum("bthwc,tco->bhwo", taps, w9)
+            return y * demod[:, None, None, :]
+        if tables_mode != "fused":
+            raise ValueError(f"tables_mode must be fused|sample, got "
+                             f"{tables_mode!r}")
         xs_main = x * s[:, None, None, :ld]
         w_main = w9[:, :ld].contiguous()
         if groups:

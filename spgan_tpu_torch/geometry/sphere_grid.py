@@ -3,7 +3,8 @@
 offset-table forms, computed in float32 as the JAX package computes them).
 
 Every function takes the crop fractions as float32 tensors of any common
-shape S (one entry per patch) and returns tensors with S leading.
+shape S (one entry per patch) and returns tensors with S leading, on the
+fractions' device.
 
 Output convention: grid[..., 0] = gx (width/longitude), grid[..., 1] = gy
 (height/latitude), both in [-1, 1] for align_corners=True sampling over the
@@ -31,9 +32,9 @@ def _kernel_offsets(k: int, x_total: int, y_total: int):
     return ker_x, ker_y, rho, nu
 
 
-def _f32_offsets(k: int, x_total: int, y_total: int):
+def _f32_offsets(k: int, x_total: int, y_total: int, device):
     ker_x, ker_y, rho, nu = _kernel_offsets(k, x_total, y_total)
-    return [torch.as_tensor(np.asarray(v, np.float32))
+    return [torch.as_tensor(np.asarray(v, np.float32), device=device)
             for v in (ker_x, ker_y, rho, np.cos(nu), np.sin(nu))]
 
 
@@ -42,7 +43,8 @@ def _linspace(start: torch.Tensor, stop: torch.Tensor, num: int
     """Batched float32 linspace with jnp.linspace's arithmetic:
     start*(1-step) + stop*step, then the exact endpoint."""
     div = num - 1
-    step = torch.arange(div, dtype=torch.float32) / float(div)
+    step = torch.arange(div, dtype=torch.float32,
+                        device=start.device) / float(div)
     out = start[..., None] * (1 - step) + stop[..., None] * step
     return torch.cat([out, stop[..., None]], dim=-1)
 
@@ -56,7 +58,8 @@ def _min_max_norm(v: torch.Tensor) -> torch.Tensor:
 def _lat_pattern_lon_off(lat_range, k, x_total, y_total):
     """(…, h) row latitudes -> the center-relative latitude pattern and the
     longitude offsets of every tap, both (…, h, k, k)."""
-    ker_x, ker_y, rho, cos_nu, sin_nu = _f32_offsets(k, x_total, y_total)
+    ker_x, ker_y, rho, cos_nu, sin_nu = _f32_offsets(k, x_total, y_total,
+                                                     lat_range.device)
     sin_lat = torch.sin(lat_range)[..., None, None]
     cos_lat = torch.cos(lat_range)[..., None, None]
     # clip: the argument is analytically in [-1,1] but float32 rounding can
@@ -123,7 +126,8 @@ def sphere_offset_tables(p_x_st, p_x_ed, p_y_st, p_y_ed, circular,
     dy = pattern.reshape(*lead, h, k * k) * (h - 1) / 2.0
     dx = lon_off.reshape(*lead, h, k * k) * (w - 1) / 2.0
 
-    rows = torch.arange(h, dtype=torch.float32)[:, None]
+    rows = torch.arange(h, dtype=torch.float32,
+                        device=lat_range.device)[:, None]
     py = rows + dy
     y_floor = torch.floor(py)
     wy = py - y_floor
@@ -133,6 +137,31 @@ def sphere_offset_tables(p_x_st, p_x_ed, p_y_st, p_y_ed, circular,
     sx_f = torch.floor(dx)
     return {"y0": y0, "y1": y1, "wy": wy, "sx": sx_f.to(torch.int32),
             "fx": dx - sx_f}
+
+
+def training_col_margin(w: int, k: int, x_total: int, y_total: int,
+                        grid_partial: float, n: int = 8193) -> int:
+    """Worst-case column-shift margin of the offset tables over ALL training
+    crops at layer width ``w`` (numpy, static).
+
+    dx(r, t) = lon_off(lat_r, t) * (w - 1) / 2 depends only on the row
+    latitude, and training-crop latitudes lie inside
+    [-pi/2, pi/2] * grid_partial, so a dense latitude sweep bounds the
+    integer shift sx = floor(dx) for every possible crop.  Returns M
+    guaranteeing sx in [-M, M-1] (the tap-conv contract), at least 6: the
+    static counterpart of generator.skip_margin, which needs the tables on
+    the host."""
+    ker_x, ker_y, rho, nu = _kernel_offsets(k, x_total, y_total)
+    cos_nu, sin_nu = np.cos(nu), np.sin(nu)
+    half = np.pi / 2.0 * grid_partial
+    lat = np.linspace(-half, half, n)
+    sin_lat = np.sin(lat)[:, None, None]
+    cos_lat = np.cos(lat)[:, None, None]
+    lon_off = np.arctan(
+        ker_x * sin_nu / (rho * cos_lat * cos_nu - ker_y * sin_lat * sin_nu))
+    dx = lon_off.reshape(n, k * k) * (w - 1) / 2.0
+    sx = np.floor(dx).astype(np.int64)
+    return max(6, int(-sx.min()), int(sx.max()) + 1)
 
 
 def sphere_offset_tables_batch(cp, h: int, w: int, k: int = 3) -> dict:

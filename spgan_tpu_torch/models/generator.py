@@ -1,6 +1,8 @@
 """The SP-GAN generator: structure synthesizer (spherical refiner) + texture
 synthesizer (no-padding StyleGAN2 chain with spherical skip convs).
-Counterpart of spgan_tpu/models/generator.py: the inference forward.
+Counterpart of spgan_tpu/models/generator.py: the inference forward and
+the training forward (sample-mode sphere convs, style mixing, the
+mode-seeking diversity loss).
 
 Parameters are nested dicts/lists of float32 tensors with the JAX
 package's tree structure (so ``compat/from_jax.py`` carries weights across
@@ -21,12 +23,35 @@ from spgan_tpu_torch.geometry.coords import (CoordGrid, CoordsPartial,
 from spgan_tpu_torch.geometry.sphere_conv import (SphereSkipConv,
                                                   SphereStyledConv)
 from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
-                                                  sphere_patch_grid_batch)
+                                                  sphere_patch_grid_batch,
+                                                  training_col_margin)
 from spgan_tpu_torch.ops.linear import EqualLinear, pixel_norm
 from spgan_tpu_torch.ops.modulated import (ModulatedConv2d, StyledConv, ToRGB,
                                            conv2d_nhwc)
 from spgan_tpu_torch.ops.spatial import (ConvSpec, derive_stitch_geometry,
                                          out_size_chain)
+from spgan_tpu_torch.tree import tree_map
+
+
+def pair_inputs(x: torch.Tensor) -> torch.Tensor:
+    """[A,B,C,D] -> [A,A,C,C] (dual latents for the diversity loss); even
+    batch only."""
+    if x.shape[0] % 2:
+        raise ValueError("dual-latent diversity loss expects an even batch")
+    return x[0::2].repeat_interleave(2, dim=0)
+
+
+def angular_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """1 - angle(a, b)/pi per sample, in float32 whatever the compute dtype,
+    with the cosine clipped strictly inside (-1, 1): arccos' is infinite at
+    the clip boundary, and near-identical dual-latent outputs (bf16) would
+    otherwise NaN every SS gradient."""
+    a = a.reshape(a.shape[0], -1).float()
+    b = b.reshape(b.shape[0], -1).float()
+    denom = torch.linalg.vector_norm(a, dim=1) * torch.linalg.vector_norm(b, dim=1)
+    cos = torch.sum(a * b, dim=1) / denom
+    cos = torch.clamp(cos, -1.0 + 1e-7, 1.0 - 1e-7)
+    return 1.0 - torch.arccos(cos) / np.pi
 
 
 def _center_crop(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -64,6 +89,7 @@ class StructureSynthesizer:
     coord_dim: int = 3
     n_layers: int = 4
     unfold_radius: int = 3
+    use_angular_div: bool = True
     coord_grid: CoordGrid = dfield(default_factory=CoordGrid)
 
     @property
@@ -97,27 +123,50 @@ class StructureSynthesizer:
         return [in_size - 2 * self.unfold_radius * i
                 for i in range(self.n_layers)]
 
+    def train_tables(self, cp: CoordsPartial, in_size: int) -> List[dict]:
+        """Per-sample offset tables for every sphere layer, on cp's device:
+        the tables_list of tables_mode "sample"."""
+        return [tables_to(sphere_offset_tables_batch(cp, s, s),
+                          cp.p_x_st.device)
+                for s in self.layer_sizes(in_size)]
+
     def apply(self, params: dict, global_z: torch.Tensor,
               local_latent: torch.Tensor, coords: torch.Tensor,
-              grids: Sequence[torch.Tensor], tables_list: Sequence[dict],
-              groups: int = 0) -> torch.Tensor:
+              grids: Optional[Sequence[torch.Tensor]],
+              tables_list: Sequence[dict], groups: int = 0,
+              tables_mode: str = "fused") -> torch.Tensor:
         """global_z: (B, global_dim) raw z (the shipped ss_mapping is off);
         local_latent: (B,S,S,local_dim); coords: (B,S,S,coord_dim) raw
         indices; grids/tables_list: per sphere layer, per patch (shared by
-        B//groups samples when groups > 0)."""
+        B//groups samples when groups > 0).  tables_mode "sample" (training)
+        takes per-sample tables and no grids."""
         h = local_latent
         sphere = self.sphere_spec()
         planar = self.planar_spec()
         for i, blk in enumerate(params["blocks"]):
             c = _center_crop(coords, h.shape[1], h.shape[2])
-            y = sphere.apply(blk["sphere"], h, global_z, c, grids[i],
-                             tables_list[i], groups=groups)
+            y = sphere.apply(blk["sphere"], h, global_z, c,
+                             None if grids is None else grids[i],
+                             tables_list[i], groups=groups,
+                             tables_mode=tables_mode)
             y = F.leaky_relu(y, 0.01)
             h = y + _plain_conv1x1(blk["sc"], h)
             c = _center_crop(coords, h.shape[1], h.shape[2])
             enc = encode_coords(c, self.coord_dim).to(h.dtype)
             h = planar.apply(blk["planar"], torch.cat([h, enc], -1), global_z)
         return h
+
+    def diversity_z_loss(self, local_latent: torch.Tensor,
+                         structure_latent: torch.Tensor,
+                         eps: float = 1e-5) -> torch.Tensor:
+        """Mode-seeking loss over the dual-latent pairs (0,1), (2,3), ...:
+        1 / (dist(structure) / dist(local latent) + eps)."""
+        def dist(v):
+            if self.use_angular_div:
+                return angular_similarity(v[0::2], v[1::2]).mean()
+            return torch.abs(v[0::2] - v[1::2]).mean()
+
+        return 1.0 / (dist(structure_latent) / dist(local_latent) + eps)
 
 
 # ----------------------------------------------------------------------
@@ -282,6 +331,7 @@ def skip_margin(tables: dict) -> int:
 class Generator:
     ss: StructureSynthesizer
     ts: TextureSynthesizer
+    use_div_z: bool = True
 
     @classmethod
     def from_config(cls, cfg: Config) -> "Generator":
@@ -299,6 +349,7 @@ class Generator:
             local_dim=tp.local_latent_dim, global_dim=tp.global_latent_dim,
             coord_dim=tp.coord_num_dir, n_layers=tp.ss_n_layers,
             unfold_radius=tp.ss_unfold_radius,
+            use_angular_div=tp.diversity_angular,
             coord_grid=CoordGrid(
                 ts_input_size=tp.ts_input_size,
                 ss_unfold_size=tp.ss_unfold_size,
@@ -317,7 +368,7 @@ class Generator:
             no_zero_pad=tp.ts_no_zero_pad,
             blur_kernel=(1.0, 2.0, 1.0) if tp.ts_no_zero_pad
             else (1.0, 3.0, 3.0, 1.0))
-        return cls(ss=ss, ts=ts)
+        return cls(ss=ss, ts=ts, use_div_z=(tp.diversity_z_w != 0))
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Random parameters from `gen` (a CPU generator, so the same seed
@@ -328,40 +379,72 @@ class Generator:
         params = {"ts": self.ts.init(gen), "ss": self.ss.init(gen)}
         return _tree_to(params, dev)
 
-    def build_styles(self, params: dict, global_latent: torch.Tensor
+    def build_styles(self, params: dict, global_latent: torch.Tensor,
+                     inject_index: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-        """global_latent: (B, 2, D) -> (B, n_latent, D) w-space styles
-        (no style mixing at inference)."""
+        """global_latent: (B, 2, D) -> (B, n_latent, D) w-space styles.
+        inject_index (int or 0-d tensor in [1, n_latent]): styles before it
+        map global_latent[:, 0], from it on global_latent[:, 1] (style
+        mixing); None: no mixing."""
+        n = self.ts.n_latent
         w1 = self.ts.mapping(params["ts"], global_latent[:, 0])
-        return w1[:, None].expand(-1, self.ts.n_latent, -1)
+        if inject_index is None:
+            return w1[:, None].expand(-1, n, -1)
+        w2 = self.ts.mapping(params["ts"], global_latent[:, 1])
+        idx = torch.arange(n, device=w1.device)[None, :, None]
+        return torch.where(idx < inject_index, w1[:, None], w2[:, None])
+
+    def training_skip_margins(self) -> List[int]:
+        """Static column margins of the TS skip convs over every training
+        crop (training grids use grid_partial 0.8)."""
+        grid = self.ss.coord_grid
+        return [training_col_margin(s, 3, grid.size_x, grid.size_y, 0.8)
+                for s in self.ts.skip_sizes()]
 
     def apply(self, params: dict, *, global_latent: torch.Tensor,
               local_latent: torch.Tensor, coords: torch.Tensor,
-              cp: CoordsPartial, noises: Sequence[torch.Tensor]
-              ) -> torch.Tensor:
+              cp: CoordsPartial, noises: Sequence[torch.Tensor],
+              inject_index: Optional[torch.Tensor] = None,
+              ss_tables_mode: str = "fused",
+              ts_skip_margins: Optional[Sequence[int]] = None,
+              compute_diversity: bool = False) -> Dict[str, torch.Tensor]:
         """One patch per sample: global_latent (B,2,D), local_latent
         (B,S,S,local_dim), coords (B,S,S,3) raw indices, cp one crop per
-        sample, noises one map per TS conv.  The SS sphere convs run on
-        per-sample offset tables (the per-sample sphere-conv kernel), the
-        skip convs on per-sample tap tables.  Returns (B,patch,patch,3)."""
+        sample (on local_latent's device, or the CPU), noises one map per
+        TS conv.  The skip convs run on per-sample tap tables.
+
+        ss_tables_mode "fused" (inference): the SS sphere convs run on the
+        per-sample sphere-conv kernel; "sample" (training): on the tap
+        sampler + einsum.  ts_skip_margins: static skip margins (training,
+        no host sync); None measures them from the tables.  Returns
+        {"gen": (B,patch,patch,3), "structure_latent", "styles"} and, with
+        compute_diversity, "diversity_z_loss"."""
         dev = local_latent.device
         sizes = self.ss.layer_sizes(local_latent.shape[1])
-        grids = [sphere_patch_grid_batch(cp, s, s).to(dev) for s in sizes]
-        tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
-                  for s in sizes]
+        if ss_tables_mode == "sample":
+            grids = None
+            tables = self.ss.train_tables(cp, local_latent.shape[1])
+        else:
+            grids = [sphere_patch_grid_batch(cp, s, s).to(dev) for s in sizes]
+            tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
+                      for s in sizes]
         skip = [sphere_offset_tables_batch(cp, s, s)
                 for s in self.ts.skip_sizes()]
+        if ts_skip_margins is None:
+            ts_skip_margins = [skip_margin(t) for t in skip]
         structure = self.ss.apply(params["ss"], global_latent[:, 0],
-                                  local_latent, coords, grids, tables)
-        styles = self.build_styles(params, global_latent)
-        return self.ts.synthesize(
+                                  local_latent, coords, grids, tables,
+                                  tables_mode=ss_tables_mode)
+        styles = self.build_styles(params, global_latent, inject_index)
+        img = self.ts.synthesize(
             params["ts"], structure, styles, noises,
-            [tables_to(t, dev) for t in skip], [skip_margin(t) for t in skip])
+            [tables_to(t, dev) for t in skip], ts_skip_margins)
+        out = {"gen": img, "structure_latent": structure, "styles": styles}
+        if compute_diversity and self.use_div_z:
+            out["diversity_z_loss"] = self.ss.diversity_z_loss(
+                local_latent, structure)
+        return out
 
 
 def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)

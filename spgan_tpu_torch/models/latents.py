@@ -1,0 +1,41 @@
+"""Latent sampling with explicit torch.Generators (counterpart of
+spgan_tpu/models/latents.py: the training draws).
+
+  * sample_global: a (B, 2, D) pair; the second entry equals the first
+    unless one style-mixing coin (p = mixing) for the whole batch succeeds.
+  * sample_local: (B, S+2*ss_pad, S+2*ss_pad, C), including the SS padding
+    ring.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class LatentSampler:
+    global_dim: int = 512
+    local_dim: int = 256
+    ts_input_size: int = 11
+    ss_unfold_size: int = 12
+    mixing: float = 0.9
+
+    def sample_global(self, gen: torch.Generator,
+                      batch: int) -> torch.Tensor:
+        """Drawn on gen's device; the mixing coin stays on the device."""
+        dev = gen.device
+        z1 = torch.randn((batch, self.global_dim), generator=gen, device=dev)
+        z2 = torch.randn((batch, self.global_dim), generator=gen, device=dev)
+        coin = torch.rand((), generator=gen, device=dev)
+        z2 = torch.where(coin < self.mixing, z2, z1)
+        return torch.stack([z1, z2], dim=1)
+
+    @property
+    def local_size(self) -> int:
+        return self.ts_input_size + 2 * self.ss_unfold_size
+
+    def sample_local(self, gen: torch.Generator, batch: int) -> torch.Tensor:
+        s = self.local_size
+        return torch.randn((batch, s, s, self.local_dim), generator=gen,
+                           device=gen.device)

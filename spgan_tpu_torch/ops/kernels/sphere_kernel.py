@@ -20,8 +20,7 @@ import ctypes
 
 import torch
 
-_TABLE_DTYPES = {"y0": torch.int32, "y1": torch.int32, "wy": torch.float32,
-                 "sx": torch.int32, "fx": torch.float32}
+from spgan_tpu_torch.ops.kernels.taps import TABLE_DTYPES, sample_tap
 
 
 def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
@@ -31,27 +30,11 @@ def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
     tap sums in float32, output cast to x's dtype."""
     B, H, W, C = x.shape
     K2, _, Cout = w9.shape
-    G, M = groups, margin
-    Bg = B // G
     mxu_bf16 = x.dtype == torch.bfloat16 and w9.dtype == torch.bfloat16
-    xg = x.reshape(G, Bg, H, W, C)
-    sx_all = torch.clamp(tables["sx"], -M, M - 1).to(torch.int64)
-    cols = torch.arange(W, device=x.device)
-    acc = torch.zeros((G * Bg * H * W, Cout), dtype=torch.float32,
-                      device=x.device)
+    xg = x.reshape(groups, B // groups, H, W, C)
+    acc = torch.zeros((B * H * W, Cout), dtype=torch.float32, device=x.device)
     for t in range(K2):
-        y0 = tables["y0"][:, :, t].to(torch.int64)[:, None, :, None, None]
-        y1 = tables["y1"][:, :, t].to(torch.int64)[:, None, :, None, None]
-        wy = tables["wy"][:, :, t].float()[:, None, :, None, None]
-        fx = tables["fx"][:, :, t].float()[:, None, :, None, None]
-        r0 = torch.take_along_dim(xg, y0, dim=2).float()
-        r1 = torch.take_along_dim(xg, y1, dim=2).float()
-        mixed = r0 * (1.0 - wy) + r1 * wy                   # (G,Bg,H,W,C)
-        c0 = cols + sx_all[:, :, t, None]                   # (G,H,W)
-        i0 = torch.clamp(c0, 0, W - 1)[:, None, :, :, None]
-        i1 = torch.clamp(c0 + 1, 0, W - 1)[:, None, :, :, None]
-        tap = (torch.take_along_dim(mixed, i0, dim=3) * (1.0 - fx)
-               + torch.take_along_dim(mixed, i1, dim=3) * fx)
+        tap = sample_tap(xg, tables, t, margin)
         if mxu_bf16:
             tap = tap.to(torch.bfloat16).float()
         acc = acc + tap.reshape(-1, C) @ w9[t].float()
@@ -78,7 +61,7 @@ def _launch(x: torch.Tensor, tables: dict, w9: torch.Tensor, groups: int,
     if margin < 1:
         raise ValueError(f"margin {margin} < 1")
     args = []
-    for k, dt in _TABLE_DTYPES.items():
+    for k, dt in TABLE_DTYPES.items():
         t = tables[k]
         if (t.dtype != dt or t.shape != (groups, H, K2) or t.device != x.device
                 or not t.is_contiguous()):

@@ -1,0 +1,102 @@
+"""Spherical tap sampler: the CUDA kernel ``csrc/sphere_sample.cu`` behind
+the JAX package's training-time sampler, its plain PyTorch version, and the
+straight-through wrapper the sphere convs train through.
+
+Replaces spgan_tpu/ops/pallas/sphere_sample.py::sphere_sample_taps.  For
+every sample b, tap t and output row r, the taps are a uniformly
+translated bilinear resample of the input described by the row-offset
+tables of geometry/sphere_grid.sphere_offset_tables: mix input rows y0/y1
+by wy, then columns clamp(c+sx) and clamp(c+sx+1) by fx, with sx clipped
+to [-margin, margin-1] (the TPU kernel's edge padding).  Output is
+tap-major (B, K2, H, W, C).  Write-bound on an H100 (see the source's
+note).
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel, or the call raises.  The wrapper counts its kernel launches in a
+plain integer attribute, ``sphere_sample_taps.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spgan_tpu_torch.ops.kernels.taps import TABLE_DTYPES, sample_tap
+
+
+def sphere_sample_taps_plain(x: torch.Tensor, tables: dict,
+                             margin: int = 6) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch ops: per-sample tables (B,H,K2);
+    each tap in float32, cast once to x's dtype.  Returns (B,K2,H,W,C)."""
+    B = x.shape[0]
+    K2 = tables["y0"].shape[-1]
+    xg = x.reshape(B, 1, *x.shape[1:])
+    return torch.stack([sample_tap(xg, tables, t, margin)[:, 0].to(x.dtype)
+                        for t in range(K2)], dim=1)
+
+
+def _launch(x: torch.Tensor, tables: dict, margin: int) -> torch.Tensor:
+    """Check the operands and launch csrc/sphere_sample.cu on the current
+    stream; raises on anything the kernel does not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"sphere sample kernel needs CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (B,H,W,C) tensor, got "
+                         f"{tuple(x.shape)}")
+    B, H, W, C = x.shape
+    K2 = tables["y0"].shape[-1]
+    if margin < 1:
+        raise ValueError(f"margin {margin} < 1")
+    args = []
+    for k, dt in TABLE_DTYPES.items():
+        t = tables[k]
+        if (t.dtype != dt or t.shape != (B, H, K2) or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"table {k}: need contiguous {dt} {(B, H, K2)} "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+        args.append(t)
+    from spgan_tpu_torch.ops.kernels import build
+
+    lib = build.load("sphere_sample")
+    fn = lib.sphere_sample_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((B, K2, H, W, C), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
+                 B, H, W, C, K2, margin,
+                 1 if x.dtype == torch.bfloat16 else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"sphere_sample_launch failed: cudaError {err}")
+    return out
+
+
+def sphere_sample_taps(x: torch.Tensor, tables: dict,
+                       margin: int = 6) -> torch.Tensor:
+    """x: (B,H,W,C); tables: per-sample dict of (B,H,K2).  Returns the
+    sampled taps (B,K2,H,W,C) in x's dtype (primal only: wrap with
+    st_sample_taps to train through it)."""
+    if x.device.type == "cpu":
+        return sphere_sample_taps_plain(x, tables, margin)
+    out = _launch(x, tables, margin)
+    sphere_sample_taps.launches += 1
+    return out
+
+
+sphere_sample_taps.launches = 0
+
+
+def st_sample_taps(z: torch.Tensor, tables: dict) -> torch.Tensor:
+    """Straight-through tap sampler: forward == sphere_sample_taps; the
+    gradient w.r.t. z is 0.1 * the mean over taps of the cotangent (the
+    reference's 3x3 block-mean backward in the tap-major layout), and
+    nothing flows to the tables.  Plain tensor algebra, so it stays twice
+    differentiable (R1 and PPL)."""
+    k2 = tables["y0"].shape[-1]
+    primal = sphere_sample_taps(z.detach(), tables)
+    lin = (0.1 / k2) * z[:, None].expand(z.shape[0], k2, *z.shape[1:])
+    return primal + lin - lin.detach()

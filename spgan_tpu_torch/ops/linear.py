@@ -1,10 +1,10 @@
-"""Equalized-LR linear layer and activations (counterpart of
+"""Equalized-LR linear and conv layers and activations (counterpart of
 spgan_tpu/ops/linear.py).
 
 Specs are frozen dataclasses holding static hyperparameters; ``init``
 returns a parameter dict of float32 tensors and ``apply`` is a plain
-function of (params, inputs).  Linear weights are stored torch-style,
-(out, in).
+function of (params, inputs).  Weights are stored torch-style: linear
+(out, in), conv OIHW.
 """
 from __future__ import annotations
 
@@ -66,4 +66,37 @@ class EqualLinear:
                 y, None if b is None else b.to(x.dtype) * self.lr_mul)
         if b is not None:
             y = y + b.to(x.dtype) * self.lr_mul
+        return y
+
+
+@dataclass(frozen=True)
+class EqualConv2d:
+    """Equalized conv: NHWC activations, OIHW weight, symmetric zero
+    padding."""
+
+    in_ch: int
+    out_ch: int
+    kernel_size: int
+    stride: int = 1
+    padding: int = 0
+    bias: bool = True
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.in_ch * self.kernel_size ** 2)
+
+    def init(self, gen: torch.Generator) -> dict:
+        k = self.kernel_size
+        params = {"weight": torch.randn((self.out_ch, self.in_ch, k, k),
+                                        generator=gen)}
+        if self.bias:
+            params["bias"] = torch.zeros((self.out_ch,))
+        return params
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        w = params["weight"].to(x.dtype) * self.scale
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+                     padding=self.padding).permute(0, 2, 3, 1)
+        if "bias" in params:
+            y = y + params["bias"].to(x.dtype)
         return y

@@ -125,7 +125,8 @@ class ModulatedConv2d:
 
 @dataclass(frozen=True)
 class NoiseInjection:
-    """x + w * noise, with the noise always passed explicitly."""
+    """x + w * noise, with the noise always passed explicitly (training
+    draws every noise map in train/step.py's draw)."""
 
     def init(self) -> dict:
         return {"weight": torch.zeros(())}

@@ -28,10 +28,12 @@ def _fir_weight(flat: Tuple[float, ...], kh: int, channels: int,
                 dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Depthwise conv weight (C,1,kh,kw) of the flipped FIR kernel, made
     once per (kernel, width, dtype, device) instead of copied to the
-    device at every call."""
-    k = torch.tensor(flat, dtype=torch.float32).reshape(kh, -1).flip(0, 1)
-    return k[None, None].expand(channels, 1, *k.shape).contiguous().to(
-        device=device, dtype=dtype)
+    device at every call.  Made outside inference mode even when the first
+    call is inside it, so the cached tensor also serves autograd."""
+    with torch.inference_mode(False):
+        k = torch.tensor(flat, dtype=torch.float32).reshape(kh, -1).flip(0, 1)
+        return k[None, None].expand(channels, 1, *k.shape).contiguous().to(
+            device=device, dtype=dtype)
 
 
 def _depthwise(x: torch.Tensor, k2d: np.ndarray, *, lhs_dilation: int = 1,

@@ -78,7 +78,7 @@ def test_patch_forward_matches_jax(tmp_path):
     cp = CoordsPartial.from_scalars(cps, plan.x_total, plan.y_total, 0.6667)
     got = g.apply(params, global_latent=torch.tensor(gl),
                   local_latent=torch.tensor(z), coords=torch.tensor(coords),
-                  cp=cp, noises=[torch.tensor(n) for n in noises])
+                  cp=cp, noises=[torch.tensor(n) for n in noises])["gen"]
     assert tuple(got.shape) == want.shape == (B, 101, 101, 3)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
 

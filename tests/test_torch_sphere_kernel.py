@@ -116,7 +116,7 @@ def test_no_silent_cpu_fallback():
         Generator.from_config(Config()).init(torch.Generator())
     x = torch.empty((2, 5, 5, 8), device="meta")
     tabs = {k: torch.zeros((2, 5, 9), dtype=dt)
-            for k, dt in tk._TABLE_DTYPES.items()}
+            for k, dt in tk.TABLE_DTYPES.items()}
     before = tk.fused_sphere_conv.launches
     with pytest.raises(ValueError, match="CUDA"):
         tk.fused_sphere_conv(x, tabs, torch.empty((9, 8, 8), device="meta"))
