@@ -5,19 +5,23 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build   every kernel in spgan_tpu_torch/csrc/ with nvcc (sm_90a), one
-             nvcc per source, all started together
+             nvcc per source, all started together; registers, spills and
+             dynamic shared memory of the sphere conv, and HGMMA (wgmma)
+             in its SASS
   2. kernels each kernel against its plain PyTorch version on the card:
              the sphere conv at the SS shapes of the panorama engine
              (B=64, C=Cout=256, H=W in {35,29,23,17}), the tap sampler at
              the SS shapes of the training step (B=16, C=259, the same
              H), float32 (TF32 off) and bf16; kernel, plain, bound and
-             library times
+             library times, TFLOP/s and share of the bound, and cuDNN's
+             dense 3x3 conv of the same FLOPs as a yardstick
   3. parity  a tiny close-loop engine on cuda (kernel) vs the same engine
              on cpu (plain version), same weights and fields, float32
   4. engine  the shipped model at full width (Config() defaults, random
              weights from a fixed seed): close-loop 384x768, batch 16,
              bf16, patch_chunk 4; one warm-up generate, then timed ones;
-             the grouped kernel must launch 48 times per generate
+             the grouped kernel must launch 48 times per generate; one
+             traced generate, with the sphere conv's device time
   5. patch   Generator.apply at full width on 16 per-sample crops: the
              per-sample kernel must launch once per SS layer
   6. train-parity  the phases of a tiny training step (D, R1, G, PPL) on
@@ -91,6 +95,9 @@ def tiny_config(Config):
 
 
 def phase_build():
+    import ctypes
+    import os
+
     from spgan_tpu_torch.ops.kernels import build
 
     names = sorted(p.stem for p in build.SRC_DIR.glob("*.cu"))
@@ -100,8 +107,29 @@ def phase_build():
     print(f"[build] {names} in {dt:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"[build] {name}: {line.strip()}")
+    # what the sphere conv's launches get, as the runtime reports it
+    lib = build.load("sphere_conv")
+    fn = lib.sphere_conv_attributes
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    for dtype, what in ((1, "sphere_conv_bf16"), (0, "sphere_conv_f32")):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        err = fn(dtype, *(ctypes.byref(v) for v in vals))
+        if err:
+            raise RuntimeError(f"sphere_conv_attributes: cudaError {err}")
+        regs, local, dyn = (v.value for v in vals)
+        print(f"[build] {what}: {regs} registers, {local} bytes local "
+              f"(spills), {dyn} bytes dynamic shared memory")
+    # the bf16 body must run on warpgroup MMA: HGMMA in its SASS
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("sphere_conv"))],
+                          check=True, capture_output=True, text=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"[build] sphere_conv SASS: {n} HGMMA instructions")
+    if n == 0:
+        raise AssertionError("no HGMMA in sphere_conv's SASS")
 
 
 def ss_tables(positions, H):
@@ -182,6 +210,7 @@ def phase_kernels():
             r["bound_by"] = ("operations" if flops / H100_BF16_FLOPS
                              >= nbytes / H100_BYTES_PER_S else "bytes")
             r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+            r["pct_bound"] = 100 * r["bound_ms"] / r["ms"]
             # yardstick only (not the same function): cuDNN's dense 3x3
             # conv of the same B, H, C, Cout, i.e. the same FLOPs
             xc = xb[:b].permute(0, 3, 1, 2)
@@ -189,9 +218,18 @@ def phase_kernels():
             r["dense_conv_ms"] = time_ms(
                 lambda: torch.nn.functional.conv2d(xc, wc, padding=1), 20)
             print(f"[kernels] {name} H={H} B={b} bf16: {r['ms']:.4f} ms "
-                  f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                  f"cuDNN dense 3x3 conv {r['dense_conv_ms']:.4f} ms")
+                  f"({r['tflops']:.1f} TFLOP/s, {r['pct_bound']:.1f}% of "
+                  f"bound), plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN dense "
+                  f"3x3 conv (not the same function) "
+                  f"{r['dense_conv_ms']:.4f} ms")
+    for name, per_h in results.items():
+        tot = {k: sum(r[k] for r in per_h.values())
+               for k in ("ms", "bound_ms", "dense_conv_ms")}
+        print(f"[kernels] {name} over H={list(per_h)}: {tot['ms']:.4f} ms, "
+              f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the "
+              f"{tot['bound_ms']:.4f} ms bound; cuDNN dense 3x3 conv "
+              f"{tot['dense_conv_ms']:.4f} ms")
     return results
 
 
@@ -281,18 +319,21 @@ def phase_engine(card_str):
           f"{', '.join(f'{t:.1f}' for t in per_ms)} ms), peak memory "
           f"{peak:.2f} GiB, meta {tuple(meta.shape)} finite, "
           f"{per_gen:.0f} grouped-kernel launches per generate")
-    busy_ms = trace(lambda: eng.generate(params, gen), "generate")
+    busy_ms, by_name = trace(lambda: eng.generate(params, gen), "generate")
     untraced_ms = float(np.median(per_ms))
     print(f"[trace] device busy {busy_ms:.1f} ms of the untraced median "
           f"generate {untraced_ms:.1f} ms: idle share "
           f"{100 * (1 - busy_ms / untraced_ms):.1f}%")
+    conv_ms = sum(ms for k, ms in by_name.items() if "sphere_conv_bf16" in k)
+    print(f"[trace] sphere_conv_bf16 in one generate: {conv_ms:.2f} ms, "
+          f"{100 * conv_ms / busy_ms:.1f}% of device busy time")
     return {k: v // TIMED_GENERATES for k, v in launches.items()}
 
 
 def trace(run, what, top=12):
     """Device time by kernel over one call of `run` (torch.profiler), and
     the device's busy share of its wall time under the profiler.  Returns
-    the device-busy milliseconds."""
+    the device-busy milliseconds and the milliseconds by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -311,7 +352,7 @@ def trace(run, what, top=12):
         ms = e.self_device_time_total / 1e3
         print(f"[trace] {ms:9.2f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% "
               f"x{e.count:<5d} {e.key[:110]}")
-    return busy_ms
+    return busy_ms, {e.key: e.self_device_time_total / 1e3 for e in kernels}
 
 
 def phase_patch():
@@ -621,7 +662,7 @@ def phase_train(card_str):
     for i, (reg, what, untraced_ms) in enumerate((
             (False, "plain train step", float(np.median(plain))),
             (True, "R1+PPL train step", per_ms[-1]))):
-        busy_ms = trace(lambda: run(TIMED_TRAIN_STEPS + 2 + i, reg), what)
+        busy_ms, _ = trace(lambda: run(TIMED_TRAIN_STEPS + 2 + i, reg), what)
         print(f"[trace] device busy {busy_ms:.1f} ms of the untraced {what} "
               f"{untraced_ms:.1f} ms: idle share "
               f"{100 * (1 - busy_ms / untraced_ms):.1f}%")

@@ -3,8 +3,9 @@
 Each ``spgan_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (sm_90a) into a shared library under
 ``spgan_tpu_torch/_build/`` (listed in .gitignore), keyed by a hash of the
-source and the flags, at first use.  The library is loaded with ctypes.
-A build that fails raises; nothing falls back.
+source, the ``csrc/*.cuh`` headers and the flags, at first use.  The
+library is loaded with ctypes.  A build that fails raises; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -43,9 +44,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    """Where the library of ``csrc/<name>.cu`` lives, keyed by the source,
+    every ``csrc/*.cuh`` header (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

@@ -16,7 +16,9 @@ plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +43,17 @@ def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
     return acc.reshape(B, H, W, Cout).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """csrc/sphere_conv.cu's launch function, built at first use."""
+    from spgan_tpu_torch.ops.kernels import build
+
+    fn = build.load("sphere_conv").sphere_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(x: torch.Tensor, tables: dict, w9: torch.Tensor, groups: int,
             margin: int) -> torch.Tensor:
     """Check the operands and launch csrc/sphere_conv.cu on the current
@@ -60,31 +73,37 @@ def _launch(x: torch.Tensor, tables: dict, w9: torch.Tensor, groups: int,
         raise ValueError(f"C={C} and Cout={Cout} must be multiples of 8")
     if margin < 1:
         raise ValueError(f"margin {margin} < 1")
+    if x.dtype == torch.bfloat16 and (W < 4 or x.numel() >= 2 ** 31):
+        raise ValueError(f"the bf16 kernel takes W >= 4 (a strip of 4 "
+                         f"pixels crosses at most one image row) and fewer "
+                         f"than 2^31 elements of x (32-bit offsets); got W="
+                         f"{W}, {x.numel()} elements")
+    # device indices, not device objects: at the engine's small shapes the
+    # card finishes a launch in about the time these checks take
+    dev = x.get_device()
     args = []
     for k, dt in TABLE_DTYPES.items():
         t = tables[k]
-        if (t.dtype != dt or t.shape != (groups, H, K2) or t.device != x.device
+        if (t.dtype != dt or t.shape != (groups, H, K2) or t.get_device() != dev
                 or not t.is_contiguous()):
             raise ValueError(f"table {k}: need contiguous {dt} "
                              f"{(groups, H, K2)} on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        args.append(t)
+        args.append(t.data_ptr())
     for name, t in (("x", x), ("w9", w9)):
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned, on "
                              f"{x.device}")
-    from spgan_tpu_torch.ops.kernels import build
-
-    lib = build.load("sphere_conv")
-    fn = lib.sphere_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    # the launch reads the current device: switch only when x lies elsewhere
+    on_x = (contextlib.nullcontext() if dev == torch.cuda.current_device()
+            else torch.cuda.device(dev))
+    with on_x:
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), *(t.data_ptr() for t in args), w9.data_ptr(),
-                 out.data_ptr(), B, H, W, C, Cout, K2, B // groups, margin,
-                 1 if x.dtype == torch.bfloat16 else 0, stream)
+        err = _kernel()(x.data_ptr(), *args,
+                        w9.data_ptr(), out.data_ptr(), B, H, W, C, Cout, K2,
+                        B // groups, margin,
+                        1 if x.dtype == torch.bfloat16 else 0, stream)
     if err != 0:
         raise RuntimeError(f"sphere_conv_launch failed: cudaError {err}")
     return out

@@ -128,3 +128,25 @@ def test_no_silent_cpu_fallback():
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build(["sphere_conv"])
 
+
+
+def test_library_key_covers_headers(tmp_path, monkeypatch):
+    """The built library's name changes with the source, with any csrc/*.cuh
+    header (a source may include it) and with the flags, so a stale .so is
+    never loaded after an edit."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
+    fourth = build.library_path("k")
+    assert fourth not in (first, second, third)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    assert build.library_path("k") not in (first, second, third, fourth)

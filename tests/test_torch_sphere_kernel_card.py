@@ -7,7 +7,15 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 Skips without a CUDA device.  Tolerances: float32 1e-5 (the same lerps,
 products summed in another order; TF32 off); bf16 atol 1e-3 / rtol 2^-7
 (identical bf16 taps, float32 sums in another order can move the final
-bf16 rounding by one ulp)."""
+bf16 rounding by one ulp).
+
+The bf16 kernel gives each consumer warpgroup a unit of 64 consecutive
+pixels and a thread a strip of 4 of them, so the cases below cover units
+and strips that cross image rows (W not a multiple of 4 or 64, W = 4, 5),
+partial last units, idle warpgroups in the last round, one table per
+sample (Bg = 1) and per group (Bg = 5, 16), channel counts below and
+between the 64-channel stages (C = 16, 24, 40, 72) and Cout below, at and
+above the 256 a block covers."""
 import numpy as np
 import pytest
 import torch
@@ -77,4 +85,79 @@ def test_kernel_rejects_bad_operands_on_card():
                              .transpose(1, 2))
     with pytest.raises(ValueError, match="table y0"):
         tk.fused_sphere_conv(x, {**tg, "y0": tg["y0"].long()}, w9)
+    with pytest.raises(ValueError, match="W >= 4"):
+        tk.fused_sphere_conv(x[:, :, :3].contiguous().bfloat16(), tg,
+                             w9.bfloat16())
     assert tk.fused_sphere_conv.launches == n
+
+
+def _check_both_entry_points(x, tg, w9, G):
+    """Grouped and per-sample launches against the plain version."""
+    Bg = x.shape[0] // G
+    tp = {k: v.repeat_interleave(Bg, dim=0).contiguous() for k, v in tg.items()}
+    ref = tk.fused_sphere_conv_plain(x, tg, w9, G).cpu()
+    n_g = tk.fused_sphere_conv_grouped.launches
+    n_p = tk.fused_sphere_conv.launches
+    got_g = tk.fused_sphere_conv_grouped(x, tg, w9, groups=G).cpu()
+    got_p = tk.fused_sphere_conv(x, tp, w9).cpu()
+    assert tk.fused_sphere_conv_grouped.launches == n_g + 1
+    assert tk.fused_sphere_conv.launches == n_p + 1
+    for got in (got_g, got_p):
+        assert got.dtype == x.dtype and got.shape == ref.shape
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                                   **_TOL[x.dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Bg,H,W,C,Cout", [
+    (2, 16, 9, 13, 256, 256),   # Bg = 16, W not a multiple of 4
+    (6, 1, 11, 13, 64, 64),     # one table per sample
+    (2, 4, 17, 17, 16, 16),     # the tiny engine's widths
+    (2, 3, 5, 5, 24, 40),       # W = 5: most strips cross an image row
+    (1, 4, 6, 4, 8, 8),         # W = 4, the least the bf16 kernel takes
+    (1, 2, 6, 7, 72, 264),      # C spans two stages, Cout two blocks
+])
+def test_kernel_ragged_tiles_on_card(G, Bg, H, W, C, Cout, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(G * 1000 + H * 10 + C)
+    x = torch.tensor(rng.randn(G * Bg, H, W, C), dtype=dtype).cuda()
+    w9 = torch.tensor(rng.randn(9, C, Cout) / np.sqrt(9 * C),
+                      dtype=dtype).cuda()
+    tg = {k: v.cuda() for k, v in _random_group_tables(rng, G, H, 9).items()}
+    _check_both_entry_points(x, tg, w9, G)
+
+
+def _engine_tables(H, G, seed):
+    """Offset tables of G lattice positions of the shipped 384x768
+    close-loop plan at SS size H (as chip_smoke.py builds them)."""
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.geometry.coords import CoordsPartial
+    from spgan_tpu_torch.geometry.sphere_grid import sphere_offset_tables_batch
+    from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
+    from spgan_tpu_torch.models.generator import Generator
+
+    plan = build_close_loop_plan(Generator.from_config(Config()), 384, 768)
+    pos = np.random.RandomState(seed).choice(len(plan.cp_scalars), G,
+                                             replace=False)
+    cp = CoordsPartial.from_scalars(plan.cp_scalars[pos], plan.x_total,
+                                    plan.y_total, 0.6667)
+    return {k: v.cuda().contiguous()
+            for k, v in sphere_offset_tables_batch(cp, H, H).items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [35, 17])
+def test_kernel_at_engine_shapes_on_card(H):
+    """The engine's own call: B=64 in G=4 groups, C=Cout=256, bf16, the
+    real offset tables of the shipped plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, G, C = 64, 4, 256
+    rng = np.random.RandomState(H)
+    x = torch.tensor(rng.randn(B, H, H, C), dtype=torch.bfloat16).cuda()
+    w9 = torch.tensor(rng.randn(9, C, C) / np.sqrt(9 * C),
+                      dtype=torch.bfloat16).cuda()
+    _check_both_entry_points(x, _engine_tables(H, G, seed=H), w9, G)
