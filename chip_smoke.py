@@ -7,14 +7,16 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build   every kernel in spgan_tpu_torch/csrc/ with nvcc (sm_90a), one
              nvcc per source, all started together; registers, spills and
              dynamic shared memory of the sphere conv, and HGMMA (wgmma)
-             in its SASS
+             in its SASS; the tap sampler's memory instructions in its SASS
   2. kernels each kernel against its plain PyTorch version on the card:
              the sphere conv at the SS shapes of the panorama engine
              (B=64, C=Cout=256, H=W in {35,29,23,17}), the tap sampler at
              the SS shapes of the training step (B=16, C=259, the same
              H), float32 (TF32 off) and bf16; kernel, plain, bound and
              library times, TFLOP/s and share of the bound, and cuDNN's
-             dense 3x3 conv of the same FLOPs as a yardstick
+             dense 3x3 conv of the same FLOPs as a yardstick; for the tap
+             sampler also its device time (torch.profiler), GB/s, the
+             distinct input rows per output row and its row slots
   3. parity  a tiny close-loop engine on cuda (kernel) vs the same engine
              on cpu (plain version), same weights and fields, float32
   4. engine  the shipped model at full width (Config() defaults, random
@@ -95,8 +97,10 @@ def tiny_config(Config):
 
 
 def phase_build():
+    import collections
     import ctypes
     import os
+    import re
 
     from spgan_tpu_torch.ops.kernels import build
 
@@ -130,6 +134,14 @@ def phase_build():
     print(f"[build] sphere_conv SASS: {n} HGMMA instructions")
     if n == 0:
         raise AssertionError("no HGMMA in sphere_conv's SASS")
+    # the tap sampler's memory instructions: shared loads, cp.async
+    # (LDGSTS), 16-byte streaming stores (STG.E.EF.128), local memory
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build.library_path("sphere_sample"))],
+                          check=True, capture_output=True, text=True).stdout
+    ops = collections.Counter(re.findall(
+        r"\b(?:LDS|LDGSTS|STG|LDL|STL)[A-Z0-9._]*", sass))
+    print(f"[build] sphere_sample SASS (4 kernels): {dict(sorted(ops.items()))}")
 
 
 def ss_tables(positions, H):
@@ -422,6 +434,37 @@ def training_crops(B, H, seed):
     return tables, sphere_patch_grid_batch(cp, H, H)
 
 
+def device_ms(run, name, iters=20):
+    """Mean device time (torch.profiler, self device time) of the kernels
+    whose name holds `name`, over `iters` back-to-back calls of `run`; each
+    call must launch one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in ev)
+    if count != iters:
+        raise AssertionError(f"{count} traced launches of {name}, want {iters}")
+    return sum(e.self_device_time_total for e in ev) / count / 1e3
+
+
+def distinct_rows(tables, taps):
+    """Max and mean count of the distinct input rows (y0 and y1) that each
+    group of `taps` consecutive taps of an output row (b, r) reads."""
+    y = torch.stack([tables["y0"], tables["y1"]], dim=-1)
+    B, H, K2, _ = y.shape
+    s, _ = y.reshape(B, H, K2 // taps, 2 * taps).sort(dim=-1)
+    d = 1 + (s[..., 1:] != s[..., :-1]).sum(dim=-1)
+    return int(d.max()), float(d.float().mean())
+
+
 def phase_sample_kernel():
     """The tap sampler (B3) at the training step's SS shapes."""
     import torch.nn.functional as F
@@ -446,6 +489,15 @@ def phase_sample_kernel():
             r["err"] = max(r["err"], err)
             print(f"[kernels] sphere_sample_taps H={H} {str(dtype)[6:]}: "
                   f"max_abs_err {err:.3e} (exact)")
+        rows_br, rows_unit = distinct_rows(tables, 9), distinct_rows(tables, 3)
+        slots, smem, per_sm = ss.staging_plan(torch.cuda.current_device(),
+                                              H, C, False)
+        print(f"[kernels] sphere_sample_taps H={H} tables: distinct input "
+              f"rows per output row (b, r) max {rows_br[0]} mean "
+              f"{rows_br[1]:.3f}, per tap row (b, r, 3 taps) max "
+              f"{rows_unit[0]} mean {rows_unit[1]:.3f}; f32 launch: "
+              f"{slots} row slots, {smem} bytes dynamic shared memory, "
+              f"{per_sm} blocks per SM")
         # times in float32, the shipped training dtype
         got = ss.sphere_sample_taps(x32, tables)
 
@@ -459,25 +511,37 @@ def phase_sample_kernel():
                 .reshape(B, 9, H, H, C)
 
         r["library_err"] = float((library() - got).abs().max())
+        # back to back from the host (host time included), and the
+        # kernel's own device time
         r["ms"] = time_ms(lambda: ss.sphere_sample_taps(x32, tables), 20)
+        r["device_ms"] = device_ms(lambda: ss.sphere_sample_taps(x32, tables),
+                                   "sphere_sample_taps_kernel")
         r["plain_ms"] = time_ms(
             lambda: ss.sphere_sample_taps_plain(x32, tables), 3, warmup=1)
         r["library_ms"] = time_ms(library, 20)
         # each input element read once, nine written; the tables; three
         # lerps (4 float32 ops each) per output element
-        nbytes = 10 * B * H * H * C * 4 + 5 * B * H * 9 * 4
+        r["bytes"] = nbytes = 10 * B * H * H * C * 4 + 5 * B * H * 9 * 4
         flops = 12.0 * 9 * B * H * H * C
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
         r["bound_ms"] = max(t_bytes, t_ops) * 1e3
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"[kernels] sphere_sample_taps H={H} B={B} C={C} f32: "
-              f"{r['ms']:.4f} ms ({nbytes / r['ms'] / 1e6:.0f} GB/s), plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library grid_sample+permute "
-              f"{r['library_ms']:.4f} ms (max |diff| vs kernel "
-              f"{r['library_err']:.2e}, "
+        print(f"[kernels] sphere_sample_taps H={H} B={B} C={C} f32: device "
+              f"{r['device_ms']:.4f} ms ({nbytes / r['device_ms'] / 1e6:.0f} "
+              f"GB/s, {100 * r['bound_ms'] / r['device_ms']:.1f}% of bound), "
+              f"back to back {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+              f"grid_sample+permute {r['library_ms']:.4f} ms (max |diff| vs "
+              f"kernel {r['library_err']:.2e}, "
               f"{'matched' if r['library_err'] < 1e-3 else 'DIFFERS'} "
               f"at 1e-3)")
+    tot = {k: sum(r[k] for r in res.values())
+           for k in ("device_ms", "ms", "bound_ms", "bytes", "library_ms")}
+    print(f"[kernels] sphere_sample_taps over H={list(res)}: device "
+          f"{tot['device_ms']:.4f} ms ({tot['bytes'] / tot['device_ms'] / 1e6:.0f}"
+          f" GB/s, {100 * tot['bound_ms'] / tot['device_ms']:.1f}% of the "
+          f"{tot['bound_ms']:.4f} ms bound), back to back {tot['ms']:.4f} ms, "
+          f"library {tot['library_ms']:.4f} ms")
     return res
 
 
@@ -709,6 +773,8 @@ def main():
             "bound_by": per_h[35]["bound_by"],
             "library_ms": None,
         })
+    dev_ms = sum(r["device_ms"] for r in sample.values())
+    bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
         "name": "sphere_sample_taps", "route": "cuda",
         "source": "spgan_tpu_torch/csrc/sphere_sample.cu",
@@ -718,9 +784,14 @@ def main():
         "launches": train_launches["sphere_sample_taps"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
+        # back to back from the host (host time included)
         "ms": sum(r["ms"] for r in sample.values()),
+        # the kernel's own time (torch.profiler)
+        "device_ms": dev_ms,
+        "gb_per_s": sum(r["bytes"] for r in sample.values()) / dev_ms / 1e6,
+        "pct_bound": 100 * bound_ms / dev_ms,
         "plain_ms": sum(r["plain_ms"] for r in sample.values()),
-        "bound_ms": sum(r["bound_ms"] for r in sample.values()),
+        "bound_ms": bound_ms,
         "bound_by": sample[35]["bound_by"],
         "library_ms": sum(r["library_ms"] for r in sample.values()),
     })

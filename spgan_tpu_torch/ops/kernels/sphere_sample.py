@@ -8,8 +8,9 @@ translated bilinear resample of the input described by the row-offset
 tables of geometry/sphere_grid.sphere_offset_tables: mix input rows y0/y1
 by wy, then columns clamp(c+sx) and clamp(c+sx+1) by fx, with sx clipped
 to [-margin, margin-1] (the TPU kernel's edge padding).  Output is
-tap-major (B, K2, H, W, C).  Write-bound on an H100 (see the source's
-note).
+tap-major (B, K2, H, W, C).  Write-bound on an H100: the kernel stages
+the input rows of each tap row of the 3x3 kernel in shared memory once and
+streams the output with 16-byte stores (see the source's note).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the call raises.  The wrapper counts its kernel launches in a
@@ -17,7 +18,9 @@ plain integer attribute, ``sphere_sample_taps.launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +38,35 @@ def sphere_sample_taps_plain(x: torch.Tensor, tables: dict,
                         for t in range(K2)], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """csrc/sphere_sample.cu, built at first use, argument types set once."""
+    from spgan_tpu_torch.ops.kernels import build
+
+    lib = build.load("sphere_sample")
+    lib.sphere_sample_launch.argtypes = ([ctypes.c_void_p] * 7
+                                         + [ctypes.c_int] * 7
+                                         + [ctypes.c_void_p])
+    lib.sphere_sample_launch.restype = ctypes.c_int
+    lib.sphere_sample_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.sphere_sample_plan.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def staging_plan(dev: int, W: int, C: int, bf16: bool) -> tuple:
+    """(row slots, dynamic shared-memory bytes, resident blocks per SM) of
+    a launch on CUDA device `dev` whose input rows hold W*C elements.  The
+    slots are 0 when two rows do not fit in a block's shared memory."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(dev):
+        err = _lib().sphere_sample_plan(W, C, int(bf16),
+                                        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"sphere_sample_plan failed: cudaError {err}")
+    return tuple(v.value for v in vals)
+
+
 def _launch(x: torch.Tensor, tables: dict, margin: int) -> torch.Tensor:
     """Check the operands and launch csrc/sphere_sample.cu on the current
     stream; raises on anything the kernel does not take."""
@@ -49,27 +81,34 @@ def _launch(x: torch.Tensor, tables: dict, margin: int) -> torch.Tensor:
     K2 = tables["y0"].shape[-1]
     if margin < 1:
         raise ValueError(f"margin {margin} < 1")
+    # device indices, not device objects: at the smaller training shapes
+    # the card finishes a launch in about the time these checks take
+    dev = x.get_device()
     args = []
     for k, dt in TABLE_DTYPES.items():
         t = tables[k]
-        if (t.dtype != dt or t.shape != (B, H, K2) or t.device != x.device
+        if (t.dtype != dt or t.shape != (B, H, K2) or t.get_device() != dev
                 or not t.is_contiguous()):
             raise ValueError(f"table {k}: need contiguous {dt} {(B, H, K2)} "
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-        args.append(t)
-    from spgan_tpu_torch.ops.kernels import build
-
-    lib = build.load("sphere_sample")
-    fn = lib.sphere_sample_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        args.append(t.data_ptr())
+    if B * K2 * H * W * C >= 2 ** 31:
+        raise ValueError(f"output of {B * K2 * H * W * C} elements: the "
+                         f"kernel's 32-bit offsets take fewer than 2^31")
+    bf16 = x.dtype == torch.bfloat16
+    if staging_plan(dev, W, C, bf16)[0] == 0:
+        raise ValueError(f"an input row of W*C = {W * C} elements does not "
+                         f"fit twice in a block's shared memory")
     out = torch.empty((B, K2, H, W, C), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    # the launch reads the current device: switch only when x lies elsewhere
+    on_x = (contextlib.nullcontext() if dev == torch.cuda.current_device()
+            else torch.cuda.device(dev))
+    with on_x:
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-                 B, H, W, C, K2, margin,
-                 1 if x.dtype == torch.bfloat16 else 0, stream)
+        err = _lib().sphere_sample_launch(
+            x.data_ptr(), *args, out.data_ptr(), B, H, W, C, K2, margin,
+            int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"sphere_sample_launch failed: cudaError {err}")
     return out

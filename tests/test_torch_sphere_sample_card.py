@@ -14,29 +14,61 @@ import torch
 from spgan_tpu_torch.ops.kernels import sphere_sample as ts
 
 
-def _random_tables(rng, B, H, K2):
+def _random_tables(rng, B, H, K2, far=False):
+    """Random tables in range, shifts past the margin.  `far`: y0 and y1
+    drawn apart, so a tap row of 3 taps reaches up to 6 distinct rows,
+    more than the kernel's 3 row slots hold."""
     t = {"y0": rng.randint(0, H, (B, H, K2)).astype(np.int32),
          "wy": rng.rand(B, H, K2).astype(np.float32),
          "sx": rng.randint(-9, 9, (B, H, K2)).astype(np.int32),
          "fx": rng.rand(B, H, K2).astype(np.float32)}
-    t["y1"] = np.minimum(t["y0"] + 1, H - 1).astype(np.int32)
+    if far:
+        t["y1"] = rng.randint(0, H, (B, H, K2)).astype(np.int32)
+    else:
+        t["y1"] = np.minimum(t["y0"] + 1, H - 1).astype(np.int32)
     return {k: torch.tensor(v).cuda() for k, v in t.items()}
 
 
+# (B, H, W, C, margin, far rows): C in {3, 4, 256, 259} (below and at one
+# 16-byte store of float32 and bf16, aligned and unaligned rows), W in
+# {1, 2, 11, 35} with H != W, H = 1, margins 1 and 6.  Odd W*C puts the
+# strips' starts at every residue mod 16 bytes (checked below).  The last
+# case's rows (103,600 bytes in float32) leave 2 slots, not 3.
+CASES = [
+    (3, 13, 11, 259, 6, False),
+    (2, 9, 35, 259, 6, True),
+    (2, 5, 11, 3, 6, True),
+    (2, 7, 1, 4, 1, False),
+    (2, 6, 2, 256, 1, True),
+    (3, 1, 11, 259, 6, False),
+    (2, 4, 35, 256, 6, True),
+    (2, 3, 2, 3, 1, False),
+    (2, 17, 35, 259, 1, True),
+    (1, 6, 100, 259, 6, True),
+]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "B{}H{}W{}C{}M{}{}".format(
+    *c[:5], "far" if c[5] else ""))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_card(dtype):
-    """C = 259 (rows not 16-byte aligned), W != H, shifts beyond the
-    margin (clipped to [-6, 5])."""
+def test_kernel_matches_plain_on_card(dtype, case):
+    """Exact against the plain version: unaligned strips and rows, narrow
+    C (a 16-byte store spans pixels), W=1 and 2 (every column clamps),
+    H=1, shifts beyond the margin, and rows far apart (slot eviction)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.RandomState(0)
-    B, H, W, C = 3, 13, 11, 259
+    B, H, W, C, margin, far = case
+    rng = np.random.RandomState(sum(case[:5]))
     x = torch.tensor(rng.randn(B, H, W, C), dtype=dtype).cuda()
-    tabs = _random_tables(rng, B, H, 9)
-    ref = ts.sphere_sample_taps_plain(x, tabs).cpu()
+    tabs = _random_tables(rng, B, H, 9, far)
+    if W * C % 2 and B * 9 * H >= 8:
+        size = x.element_size()
+        starts = {(s * W * C * size) % 16 for s in range(B * 9 * H)}
+        assert starts == set(range(0, 16, size))
+    ref = ts.sphere_sample_taps_plain(x, tabs, margin).cpu()
     n = ts.sphere_sample_taps.launches
-    got = ts.sphere_sample_taps(x, tabs)
+    got = ts.sphere_sample_taps(x, tabs, margin)
     torch.cuda.synchronize()
     assert ts.sphere_sample_taps.launches == n + 1
     assert got.dtype == dtype and tuple(got.shape) == (B, 9, H, W, C)
@@ -46,7 +78,7 @@ def test_kernel_matches_plain_on_card(dtype):
 @pytest.mark.gpu
 def test_kernel_rejects_bad_operands_on_card():
     """The wrapper raises, and launches nothing, on operands the kernel does
-    not take."""
+    not take; the size checks are shape arithmetic and allocate nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.RandomState(1)
@@ -61,4 +93,16 @@ def test_kernel_rejects_bad_operands_on_card():
         ts.sphere_sample_taps(x, {**tabs, "wy": tabs["wy"].double()})
     with pytest.raises(ValueError, match="table y0"):
         ts.sphere_sample_taps(x, {**tabs, "y0": tabs["y0"][:1]})
+    # 2^31 output elements: 32768 taps of one 65536-channel pixel
+    wide = torch.zeros(1, 1, 1, 65536, device="cuda")
+    big = {k: torch.zeros((1, 1, 32768), dtype=dt, device="cuda")
+           for k, dt in ts.TABLE_DTYPES.items()}
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="2\\^31"):
+        ts.sphere_sample_taps(wide, big)
+    assert torch.cuda.memory_allocated() == before
+    # a row of 65536 float32 (256 KiB) does not fit in shared memory twice
+    with pytest.raises(ValueError, match="shared memory"):
+        ts.sphere_sample_taps(wide, {k: v[..., :9].contiguous()
+                                     for k, v in big.items()})
     assert ts.sphere_sample_taps.launches == n
