@@ -19,11 +19,24 @@ Phases (any failure exits non-zero; nothing is caught):
              distinct input rows per output row and its row slots
   3. parity  a tiny close-loop engine on cuda (kernel) vs the same engine
              on cpu (plain version), same weights and fields, float32
+  3b. infer-parity  the same for a tiny planar (infinite) engine
   4. engine  the shipped model at full width (Config() defaults, random
              weights from a fixed seed): close-loop 384x768, batch 16,
              bf16, patch_chunk 4; one warm-up generate, then timed ones;
              the grouped kernel must launch 48 times per generate; one
              traced generate, with the sphere conv's device time
+  4b. cli   the inference CLI (python -m spgan_tpu_torch.infer), called
+             in-process at full width with random weights: close-loop
+             384x768 bf16 (configs/model/spgan_run5k_bf16.yaml), 16
+             batches with --speed-benchmark, 48 grouped-kernel launches a
+             batch; planar 256x512 float32 (configs/model/spgan.yaml +
+             configs/test/spgan_infinite_256x512.yaml): 8 PNGs of 512x256
+             read back, the grouped kernel's float32 body against its
+             plain version on that run's tables and weights, then 16
+             batches with --speed-benchmark, 40 launches a batch;
+             sec/image of each after test.py's 10 warm-up batches, and
+             the close-loop manager's run_next against a bare
+             engine.generate, in turns
   5. patch   Generator.apply at full width on 16 per-sample crops: the
              per-sample kernel must launch once per SS layer
   6. train-parity  the phases of a tiny training step (D, R1, G, PPL) on
@@ -38,8 +51,11 @@ as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import json
 import math
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +67,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 SS_SIZES = (35, 29, 23, 17)
 TIMED_GENERATES = 5
 TIMED_TRAIN_STEPS = 3
+CLI_BATCHES = 16  # per --speed-benchmark run: 10 warm-up (test.py's) + 6
 
 
 def card() -> str:
@@ -245,16 +262,20 @@ def phase_kernels():
     return results
 
 
-def phase_parity():
+def phase_parity(planar=False):
+    """The tiny engine on cuda vs cpu: close-loop 128x672, or planar
+    128x200 (4 x 5 lattice)."""
     from spgan_tpu_torch.config import Config
     from spgan_tpu_torch.infer.engine import PanoramaEngine
-    from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
+    from spgan_tpu_torch.infer.stitcher import (build_close_loop_plan,
+                                                build_infinite_plan)
     from spgan_tpu_torch.models.generator import Generator
     from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
 
     g = Generator.from_config(tiny_config(Config))
     object.__setattr__(g.ts, "channel_base", 48)
-    plan = build_close_loop_plan(g, 128, 672)
+    plan = (build_infinite_plan(g, 128, 200) if planar
+            else build_close_loop_plan(g, 128, 672))
     metas = {}
     for dev in ("cpu", "cuda"):
         params = g.init(torch.Generator().manual_seed(0), device=dev)
@@ -272,9 +293,11 @@ def phase_parity():
         raise AssertionError(f"tiny engine on cuda: {launched} grouped-kernel "
                              f"launches, want {want}")
     # float32, TF32 off: the same math in another summation order
-    err = check_close("tiny engine cuda vs cpu", metas["cuda"], metas["cpu"],
-                      2e-4, 0.0)
-    print(f"[parity] tiny close-loop meta {tuple(metas['cuda'].shape)}: "
+    what = "planar" if planar else "close-loop"
+    err = check_close(f"tiny {what} engine cuda vs cpu", metas["cuda"],
+                      metas["cpu"], 2e-4, 0.0)
+    tag = "infer-parity" if planar else "parity"
+    print(f"[{tag}] tiny {what} meta {tuple(metas['cuda'].shape)}: "
           f"cuda (kernel, {launched} launches) vs cpu (plain) max_abs_err "
           f"{err:.3e} (atol 2e-4)")
 
@@ -340,6 +363,179 @@ def phase_engine(card_str):
     print(f"[trace] sphere_conv_bf16 in one generate: {conv_ms:.2f} ms, "
           f"{100 * conv_ms / busy_ms:.1f}% of device busy time")
     return {k: v // TIMED_GENERATES for k, v in launches.items()}
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def run_cli(argv, want_per_batch):
+    """One in-process run of the inference CLI with every launch count at
+    0 before it; returns (manager, grouped-kernel launches per batch)."""
+    from spgan_tpu_torch.infer.__main__ import main
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    sk.fused_sphere_conv_grouped.launches = 0
+    sk.fused_sphere_conv.launches = 0
+    ss.sphere_sample_taps.launches = 0
+    t0 = time.perf_counter()
+    manager = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_batches = manager.cur_global_id // manager.engine.batch
+    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+                "fused_sphere_conv": sk.fused_sphere_conv.launches,
+                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    per_batch = launches["fused_sphere_conv_grouped"] / n_batches
+    if per_batch != want_per_batch or launches["fused_sphere_conv"] \
+            or launches["sphere_sample_taps"]:
+        raise AssertionError(f"CLI {argv[1]} + {argv[3]}: launches {launches}"
+                             f" over {n_batches} batches (want "
+                             f"{want_per_batch} grouped a batch)")
+    print(f"[cli] {os.path.basename(argv[3])}: {n_batches} batches, "
+          f"{per_batch:.0f} grouped-kernel launches a batch, {wall:.2f} s "
+          f"wall for the whole CLI call")
+    return manager, int(per_batch)
+
+
+def sec_per_image(manager, what, card_str, warmup=10):
+    """The CLI's sec/image: the mean over the batches after test.py's
+    `warmup` calls (get_exec_time_stats), with their median, spread and
+    the warm-up batches beside it."""
+    batch = manager.engine.batch
+    per_img = np.asarray(manager.accum_exec_times) / batch
+    if len(per_img) <= warmup:
+        raise AssertionError(f"{what}: {len(per_img)} timed batches, want "
+                             f"more than the {warmup} warm-up ones")
+    kept = per_img[warmup:]
+    mean, std = (v / batch for v in manager.get_exec_time_stats(warmup))
+    print(f"[cli] {card_str}: {what}: {mean:.6f} sec/image, mean of the "
+          f"{len(kept)} batches of {batch} after {warmup} warm-up batches "
+          f"(median {np.median(kept):.6f}, min {kept.min():.6f}, max "
+          f"{kept.max():.6f}, std {std:.6f}; each "
+          f"{', '.join(f'{t:.6f}' for t in kept)}); warm-up batches "
+          f"{', '.join(f'{t:.6f}' for t in per_img[:warmup])}")
+    return mean
+
+
+def paired_generate(manager, pairs=6):
+    """The CLI manager's timed run_next against a bare engine.generate
+    ended by a synchronise (phase 4's window), in turns on one card."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bare, managed = [], []
+    for _ in range(pairs):
+        t0 = time.perf_counter()
+        manager.engine.generate(manager.params_ema, gen)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
+        manager.run_next(gen, save=False, write_gpu_time=True)
+        managed.append(manager.accum_exec_times[-1] * 1e3)
+    print(f"[cli] in turns on the CLI's manager: bare generate "
+          f"{', '.join(f'{t:.1f}' for t in bare)} ms (median "
+          f"{np.median(bare):.1f}); run_next "
+          f"{', '.join(f'{t:.1f}' for t in managed)} ms (median "
+          f"{np.median(managed):.1f})")
+
+
+def check_planar_b1(manager):
+    """B1's float32 body at the planar CLI's own shapes against its plain
+    version: every chunk's tables of the run's plan (groups = chunk, Bg =
+    batch), x (chunk*batch, H, H, local_dim) random, w9 the run's SS
+    weights (identity-initialised, so mostly the centre tap) and a random
+    one.  Returns the max abs error."""
+    from spgan_tpu_torch.geometry.sphere_conv import _taps
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+
+    eng = manager.engine
+    G, ld = eng.patch_chunk, eng.g.ss.local_dim
+    scale = eng.g.ss.sphere_spec().conv_spec().scale
+    n_chunks = len(eng._render_idx) // G
+    rng = np.random.RandomState(5)
+    # phase 2's float32 limits: sums of 9*C products in another order
+    atol, rtol = 2e-4 * math.sqrt(ld / 16), 1e-4
+    worst = 0.0
+    for tables, blk in zip(eng._ss_tables,
+                           manager.params_ema["ss"]["blocks"]):
+        H = tables["y0"].shape[1]
+        x = torch.as_tensor(rng.randn(G * eng.batch, H, H, ld)
+                            .astype(np.float32)).cuda()
+        weights = {
+            "run's": _taps(blk["sphere"]["conv"]["weight"].float()
+                           * scale)[:, :ld].contiguous(),
+            "random": torch.as_tensor((rng.randn(9, ld, ld) / math.sqrt(9 * ld))
+                                      .astype(np.float32)).cuda()}
+        for ci in range(n_chunks):
+            tg = {k: v[ci * G:(ci + 1) * G].contiguous()
+                  for k, v in tables.items()}
+            for wname, w9 in weights.items():
+                got = sk.fused_sphere_conv_grouped(x, tg, w9, G)
+                ref = sk.fused_sphere_conv_plain(x, tg, w9, G)
+                worst = max(worst, check_close(
+                    f"planar B1 float32 H={H} chunk {ci} {wname} w9", got,
+                    ref, atol, rtol))
+        print(f"[cli] planar B1 float32 H={H}: x {tuple(x.shape)}, groups "
+              f"{G}, {n_chunks} chunks x (run's, random) w9 vs plain: max "
+              f"abs err so far {worst:.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
+    return worst
+
+
+def phase_cli(card_str):
+    """The inference CLI at full width, run from a temporary directory
+    (its logs-quant/ and outputs land there)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def cfg(*p):
+        return os.path.join(repo, "configs", *p)
+
+    out = {}
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            m, out["close_loop"] = run_cli(
+                ["--model-config", cfg("model", "spgan_run5k_bf16.yaml"),
+                 "--test-config", cfg("test", "spgan_384x768.yaml"),
+                 "--random-init", "--num-gen", str(16 * CLI_BATCHES),
+                 "--speed-benchmark", "--save-root", "close_loop"],
+                want_per_batch=48)
+            out["close_loop_sec_per_image"] = sec_per_image(
+                m, "close-loop 384x768 bf16 batch 16", card_str)
+            paired_generate(m)
+            del m
+            m, out["planar"] = run_cli(
+                ["--model-config", cfg("model", "spgan.yaml"),
+                 "--test-config", cfg("test", "spgan_infinite_256x512.yaml"),
+                 "--num-gen", "8", "--save-root", "planar"],
+                want_per_batch=40)
+            pngs = sorted(f for f in os.listdir("planar") if f.endswith(".png"))
+            sizes = {png_size(os.path.join("planar", f)) for f in pngs}
+            if len(pngs) != 8 or sizes != {(512, 256)}:
+                raise AssertionError(f"planar CLI wrote {pngs} of sizes {sizes}"
+                                     " (want 8 of 512x256)")
+            crops = m.engine.crop_to_target(m.full_image)
+            if not (np.isfinite(m.full_image).all() and crops.std() > 0):
+                raise AssertionError("planar meta not finite or constant")
+            print(f"[cli] planar 256x512 float32: {len(pngs)} PNGs of "
+                  f"512x256 (IHDR), meta {m.full_image.shape} finite")
+            out["planar_f32_max_abs_err"] = check_planar_b1(m)
+            del m
+            m, _ = run_cli(
+                ["--model-config", cfg("model", "spgan.yaml"),
+                 "--test-config", cfg("test", "spgan_infinite_256x512.yaml"),
+                 "--num-gen", str(8 * CLI_BATCHES), "--speed-benchmark",
+                 "--save-root", "planar_bench"], want_per_batch=40)
+            out["planar_sec_per_image"] = sec_per_image(
+                m, "planar 256x512 float32 batch 8", card_str)
+            del m
+        finally:
+            os.chdir(old)
+    return out
 
 
 def trace(run, what, top=12):
@@ -434,25 +630,36 @@ def training_crops(B, H, seed):
     return tables, sphere_patch_grid_batch(cp, H, H)
 
 
-def device_ms(run, name, iters=20):
+def device_ms(run, name, iters=20, tries=3):
     """Mean device time (torch.profiler, self device time) of the kernels
     whose name holds `name`, over `iters` back-to-back calls of `run`; each
-    call must launch one."""
+    call must launch one.  Returns (ms, traces taken).  A trace, each with
+    its own fresh profiler, once saw 19 of 20 launches on the H100, cause
+    not found: a short trace is then taken again, up to `tries` times, and
+    the count of traces goes into the kernels line; more launches than
+    calls fail at once."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in ev)
-    if count != iters:
-        raise AssertionError(f"{count} traced launches of {name}, want {iters}")
-    return sum(e.self_device_time_total for e in ev) / count / 1e3
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.key]
+        count = sum(e.count for e in ev)
+        if count == iters:
+            return (sum(e.self_device_time_total for e in ev) / count / 1e3,
+                    attempt)
+        print(f"[kernels] {name}: trace {attempt} saw {count} launches of "
+              f"{iters} calls")
+        if count > iters:
+            break
+    raise AssertionError(f"{count} traced launches of {name}, want {iters}")
 
 
 def distinct_rows(tables, taps):
@@ -514,8 +721,9 @@ def phase_sample_kernel():
         # back to back from the host (host time included), and the
         # kernel's own device time
         r["ms"] = time_ms(lambda: ss.sphere_sample_taps(x32, tables), 20)
-        r["device_ms"] = device_ms(lambda: ss.sphere_sample_taps(x32, tables),
-                                   "sphere_sample_taps_kernel")
+        r["device_ms"], r["traces"] = device_ms(
+            lambda: ss.sphere_sample_taps(x32, tables),
+            "sphere_sample_taps_kernel")
         r["plain_ms"] = time_ms(
             lambda: ss.sphere_sample_taps_plain(x32, tables), 3, warmup=1)
         r["library_ms"] = time_ms(library, 20)
@@ -748,7 +956,9 @@ def main():
     kern = phase_kernels()
     sample = phase_sample_kernel()
     phase_parity()
+    phase_parity(planar=True)
     engine_launches = phase_engine(card_str)
+    cli_launches = phase_cli(card_str)
     patch_launches = phase_patch()
     phase_train_parity()
     train_launches = phase_train(card_str)
@@ -773,6 +983,14 @@ def main():
             "bound_by": per_h[35]["bound_by"],
             "library_ms": None,
         })
+        if name == "fused_sphere_conv_grouped":
+            # its launches a batch on the inference CLI's two lattices
+            line[-1]["cli_launches_per_batch"] = {
+                "close_loop_384x768": cli_launches["close_loop"],
+                "planar_256x512": cli_launches["planar"]}
+            # its float32 body at the planar CLI's shapes vs the plain one
+            line[-1]["planar_f32_max_abs_err"] = \
+                cli_launches["planar_f32_max_abs_err"]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -786,8 +1004,10 @@ def main():
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)
         "ms": sum(r["ms"] for r in sample.values()),
-        # the kernel's own time (torch.profiler)
+        # the kernel's own time (torch.profiler), and the traces taken
+        # for it over the four sizes (4 when none missed a launch)
         "device_ms": dev_ms,
+        "device_ms_traces": sum(r["traces"] for r in sample.values()),
         "gb_per_s": sum(r["bytes"] for r in sample.values()) / dev_ms / 1e6,
         "pct_bound": 100 * bound_ms / dev_ms,
         "plain_ms": sum(r["plain_ms"] for r in sample.values()),

@@ -7,9 +7,11 @@ counterpart on the same inputs.  The JAX package's Pallas kernels become
 hand-written CUDA kernels (``csrc/``, bound in ``ops/kernels/``), each with
 a plain PyTorch version beside it that runs on the CPU.
 
-Implemented so far: the close-loop 360-degree panorama engine
-(``infer.engine.PanoramaEngine``) and everything it runs.  This package
-imports torch and never jax, and nothing of ``spgan_tpu``.
+Implemented so far: the panorama engine (``infer.engine.PanoramaEngine``,
+close-loop and planar lattices) and everything it runs, the inference CLI
+(``python -m spgan_tpu_torch.infer``, test.py's counterpart) and the
+training step with its loop (``python -m spgan_tpu_torch.train``).  This
+package imports torch and never jax, and nothing of ``spgan_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise (``device.resolve``).

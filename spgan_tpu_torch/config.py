@@ -1,13 +1,18 @@
 """Typed configuration: the port's own copy of the fields the panorama
-engine and the training step read, with the shipped defaults of
-``spgan_tpu/config.py`` (reference configs/model/spgan.yaml and
-configs/test/spgan_384x768.yaml).  There is no yaml loader: ``Config()``
-already holds spgan.yaml's values.
+engine, the managers and the training step read, with the shipped defaults
+of ``spgan_tpu/config.py`` (reference configs/model/spgan.yaml and
+configs/test/spgan_384x768.yaml), and ``load_config``, which reads the
+reference-compatible yaml files (``utils/yaml.py``, no PyYAML needed).
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import warnings
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+from spgan_tpu_torch.utils import yaml
 
 
 @dataclass
@@ -33,8 +38,11 @@ class TrainParams:
     g_path_start: int = 100000
     d_weight: float = 1.0           # D lr ratio
 
-    # architecture
+    # architecture (the JAX package's class paths; utils.misc.import_func
+    # maps them onto this package)
     styleGAN2_baseline: bool = False
+    g_arch: str = "spgan_tpu.models.generator.Generator"
+    d_arch: str = "spgan_tpu.models.discriminator.Discriminator"
     global_latent_dim: int = 512
     local_latent_dim: int = 256
     n_mlp: int = 8
@@ -82,14 +90,113 @@ class TrainParams:
 class TaskConfig:
     """Inference-task config (the reference's test yaml)."""
 
+    task_manager: str = "spgan_tpu.infer.close_loop.CloseLoopPanoramaManager"
+    interactive: bool = False
+    seed: int = 9000
     height: int = 384
     width: int = 768
     batch_size: int = 16
+    num_gen: int = 10000
+    # accepted for reference-yaml compatibility; read by no code
+    lowres_height: int = 128
+    # the reference's parallel batching; maps onto patch_chunk
+    parallel_batch_size: Optional[int] = None
+    init_index: Optional[int] = None
+    # per-batch seeds: batch i draws from a generator seeded with i
+    seeds: bool = False
     # how many lattice positions are folded into one generator batch
     patch_chunk: int = 4
+    # "folded" (one device); "sharded" and "halo" are not ported (A12)
+    engine: str = "folded"
 
 
 @dataclass
 class Config:
     train_params: TrainParams = field(default_factory=TrainParams)
     task: TaskConfig = field(default_factory=TaskConfig)
+    exp_name: str = "spgan"
+    log_dir: str = "logs"
+
+
+# train_params keys of the JAX package with no field here: the port runs
+# only their JAX defaults (spgan_tpu/config.py), and a yaml that sets
+# another value raises rather than train or render a different model
+UNPORTED_TRAIN_DEFAULTS: Dict[str, Any] = {
+    "optimizer": "adam",
+    "lr_sch": None,
+    "freeze": False,
+    "coord_use_pd": False,
+    "coord_pd_w": 0.0,
+    "coord_ac_categorical": False,
+    "coord_pd_hori_only": False,
+    "no_ext": True,
+    "steps_per_call": 1,
+    "pallas_train_sampler": "auto",
+}
+# yaml sections the JAX package reads for training and evaluation only
+UNUSED_SECTIONS = ("data_params", "log_params", "test_params")
+
+
+def _apply_section(dc, data: Dict[str, Any]) -> Dict[str, Any]:
+    """Overlay a dict onto a dataclass instance (list -> tuple where the
+    field holds a tuple); returns the keys it has no field for."""
+    valid = {f.name for f in dataclasses.fields(dc)}
+    unknown = {}
+    for k, v in data.items():
+        if k in valid:
+            if isinstance(getattr(dc, k), tuple) and isinstance(v, list):
+                v = tuple(v)
+            setattr(dc, k, v)
+        else:
+            unknown[k] = v
+    return unknown
+
+
+def load_config(model_yaml: Optional[str] = None,
+                test_yaml: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """A Config from reference-compatible yaml files (counterpart of
+    spgan_tpu.config.load_config): the model yaml's train_params, the test
+    yaml under ``task``, then ``overrides`` ({"task.seed": 1, ...}).
+
+    A train_params key of the JAX package that the port has no field for
+    raises NotImplementedError unless it holds the JAX default.  The
+    sections the inference path does not read (data_params, log_params,
+    test_params) and keys no package knows are named in one warning."""
+    cfg = Config()
+    ignored: Dict[str, Any] = {}
+    if model_yaml is not None:
+        raw = yaml.load(model_yaml) or {}
+        for section in UNUSED_SECTIONS:
+            if section in raw:
+                ignored[section] = sorted(raw[section] or {})
+        unknown = _apply_section(cfg.train_params,
+                                 raw.get("train_params") or {})
+        for k in list(unknown):
+            if k not in UNPORTED_TRAIN_DEFAULTS:
+                continue
+            v = unknown.pop(k)
+            if v != UNPORTED_TRAIN_DEFAULTS[k]:
+                raise NotImplementedError(
+                    f"train_params.{k} = {v!r} is not ported (ROADMAP A8b); "
+                    f"the port runs only the JAX default "
+                    f"{UNPORTED_TRAIN_DEFAULTS[k]!r}")
+        if unknown:
+            ignored["train_params (unrecognized)"] = unknown
+        cfg.exp_name = os.path.splitext(os.path.basename(model_yaml))[0]
+    if test_yaml is not None:
+        unknown = _apply_section(cfg.task, yaml.load(test_yaml) or {})
+        if unknown:
+            ignored["task (unrecognized)"] = unknown
+    for dotted, v in (overrides or {}).items():
+        obj = cfg
+        *path, last = dotted.split(".")
+        for p in path:
+            obj = getattr(obj, p)
+        if not hasattr(obj, last):
+            raise AttributeError(f"no config field {dotted!r}")
+        setattr(obj, last, v)
+    if ignored:
+        warnings.warn("Config keys not used by the port's inference path, "
+                      f"ignored: {ignored}")
+    return cfg

@@ -1,13 +1,14 @@
-"""The close-loop panorama engine (counterpart of
+"""The panorama engine for close-loop and planar lattices (counterpart of
 spgan_tpu/infer/engine.py: the single-device engine).
 
 One `generate` call
 
   1. samples the latent and noise fields (or takes them injected),
-  2. pads the circular fields once, so every per-patch read is a slice,
+  2. pads the circular fields once (close-loop), so every per-patch read
+     is a slice,
   3. runs the generator over the lattice in folded batches of
-     `patch_chunk` positions x `batch` panoramas (wrap columns that are
-     bit-identical re-renders of base columns are rendered once),
+     `patch_chunk` positions x `batch` panoramas (close-loop wrap columns
+     that are bit-identical re-renders of base columns are rendered once),
   4. scatters the patches into the meta image in the reference's
      row-major overwrite order.
 
@@ -18,7 +19,7 @@ JAX package computes them) and kept on the device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -161,12 +162,16 @@ class PanoramaEngine:
     @torch.inference_mode()
     def _render(self, params, gl, z_field, noises) -> torch.Tensor:
         """(len(_render_idx), B, patch, patch, 3) float32 patches."""
-        win = self.plan.window
-        z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
-        coords_pad = torch.cat(
-            [self._coords_field, self._coords_field[:, :win]], dim=1)
-        noises_pad = [torch.cat([n, n[:, :, :osz]], dim=2)
-                      for n, osz in zip(noises, self.plan.geom.outfeat_sizes)]
+        plan = self.plan
+        if plan.close_loop:
+            win = plan.window
+            z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
+            coords_pad = torch.cat(
+                [self._coords_field, self._coords_field[:, :win]], dim=1)
+            noises_pad = [torch.cat([n, n[:, :, :osz]], dim=2)
+                          for n, osz in zip(noises, plan.geom.outfeat_sizes)]
+        else:
+            z_pad, coords_pad, noises_pad = z_field, self._coords_field, noises
         styles = self.g.build_styles(params, gl)      # (B, n_latent, D)
         gz = gl[:, 0]
         n_chunks = len(self._render_idx) // self.patch_chunk
@@ -175,19 +180,26 @@ class PanoramaEngine:
                               noises_pad, ci).float()
             for ci in range(n_chunks)])
 
-    def _scatter(self, patches: torch.Tensor) -> torch.Tensor:
+    def _scatter(self, patches: torch.Tensor,
+                 meta: Optional[torch.Tensor] = None,
+                 positions: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Meta assembly in the reference's row-major overwrite order; wrap
-        columns write their base column's render, and a patch that runs
-        past the right edge wraps to column 0."""
+        columns write their base column's render, and a close-loop patch
+        that runs past the right edge wraps to column 0.  `meta`: write
+        into this batch of meta images (in place) instead of zeros;
+        `positions`: write only these lattice positions."""
         plan = self.plan
         patch_sz = plan.geom.outfeat_sizes[-1]
         B = patches.shape[1]
-        meta = torch.zeros((B, plan.meta_h, plan.meta_w, 3),
-                           dtype=torch.float32, device=patches.device)
-        for p in range(plan.num_patches):
+        if meta is None:
+            meta = torch.zeros((B, plan.meta_h, plan.meta_w, 3),
+                               dtype=torch.float32, device=patches.device)
+        if positions is None:
+            positions = range(plan.num_patches)
+        for p in positions:
             r, c_raw = int(plan.img_starts[p, 0]), int(plan.img_starts[p, 1])
             patch = patches[int(self._full_map[p])]
-            c = c_raw % plan.meta_w
+            c = c_raw % plan.meta_w if plan.close_loop else c_raw
             rows = slice(r, r + patch_sz)
             if c + patch_sz <= plan.meta_w:
                 meta[:, rows, c:c + patch_sz] = patch
@@ -212,3 +224,10 @@ class PanoramaEngine:
         pointing at their base-column renders."""
         patches = self._render(params, gl, z_field, noises)
         return patches[torch.as_tensor(self._full_map, device=patches.device)]
+
+    def crop_to_target(self, meta: torch.Tensor) -> torch.Tensor:
+        """The centred target_h x target_w crop of a meta batch (a view)."""
+        plan = self.plan
+        ph = (plan.meta_h - plan.target_h) // 2
+        pw = (plan.meta_w - plan.target_w) // 2
+        return meta[:, ph:ph + plan.target_h, pw:pw + plan.target_w]

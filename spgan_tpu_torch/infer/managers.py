@@ -1,0 +1,200 @@
+"""Test managers: task_specific_init / run_next / save_full_imgs / exit
+(counterpart of spgan_tpu/infer/managers.py; reference
+test_managers/base_test_manager.py:147-159), with the --speed-benchmark
+timing of the reference's test.py:84-91 (per-call wall time ended by a
+device synchronise, the first 10 calls discarded as warm-up).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.device import resolve
+from spgan_tpu_torch.infer.engine import PanoramaEngine
+from spgan_tpu_torch.infer.stitcher import (build_close_loop_plan,
+                                            build_infinite_plan)
+from spgan_tpu_torch.infer.testing_vars import TestingVars
+from spgan_tpu_torch.models.generator import Generator
+from spgan_tpu_torch.utils.png import write_png
+
+
+def save_image_batch(images: np.ndarray, save_root: str, start_id: int,
+                     suffix: str = "") -> List[str]:
+    """images: (B,H,W,3) in [-1,1] -> PNG files named by zero-padded
+    global id, quantized as the JAX package does (on the host)."""
+    os.makedirs(save_root, exist_ok=True)
+    arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
+    arr = (arr * 255.0 + 0.5).astype(np.uint8)
+    paths = []
+    for i in range(arr.shape[0]):
+        p = os.path.join(save_root, f"{start_id + i:06d}{suffix}.png")
+        write_png(p, arr[i])
+        paths.append(p)
+    return paths
+
+
+@dataclass
+class BaseManager:
+    g: Generator
+    params_ema: dict
+    config: Config
+    save_root: Optional[str] = None
+    device: Optional[Union[str, torch.device]] = None  # default: cuda
+    cur_global_id: int = 0
+    accum_exec_times: List[float] = field(default_factory=list)
+    engine: Optional[PanoramaEngine] = None
+    full_image: Optional[np.ndarray] = None  # last uncropped meta batch
+
+    def __post_init__(self):
+        self.device = resolve(self.device)
+
+    def task_specific_init(self, seed: Optional[int] = None) -> None:
+        if self.config.task.init_index is not None:
+            self.cur_global_id = self.config.task.init_index
+
+    def _build_engine(self, close_loop: bool) -> PanoramaEngine:
+        task = self.config.task
+        if task.engine in ("sharded", "halo"):
+            raise NotImplementedError(
+                f"task.engine={task.engine!r} is not ported (ROADMAP A12); "
+                "the port runs the folded single-device engine")
+        if task.engine != "folded":
+            raise ValueError(f"unknown task.engine {task.engine!r}; "
+                             "supported: folded")
+        build = build_close_loop_plan if close_loop else build_infinite_plan
+        # parallel_batch_size (the reference's queue of patch calls batched
+        # into one G call) is the engine's patch_chunk
+        return PanoramaEngine(
+            g=self.g, plan=build(self.g, task.height, task.width),
+            batch=task.batch_size,
+            patch_chunk=task.parallel_batch_size or task.patch_chunk,
+            grid_partial=self.config.train_params.partial,
+            compute_dtype=self.config.train_params.compute_dtype,
+            device=self.device)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    # ---- TestingVars ----------------------------------------------------
+    def create_vars(self, gen: torch.Generator) -> TestingVars:
+        """Sample the inference state bag from `gen` (a generator on the
+        manager's device)."""
+        gl, z_field, noises = self.engine.sample_fields(gen)
+        return TestingVars(
+            meta_img=None, global_latent=gl.cpu().numpy(),
+            local_latent=z_field.cpu().numpy(),
+            meta_coords=self.engine._coords_field.cpu().numpy(),
+            noises=[n.cpu().numpy() for n in noises])
+
+    def generate_with_vars(self, vars: TestingVars) -> np.ndarray:
+        """Full generation from an (edited) TestingVars bag."""
+        meta = self.engine.generate_from_fields(
+            self.params_ema, self._to_device(vars.global_latent),
+            self._to_device(vars.local_latent),
+            [self._to_device(n) for n in vars.noises])
+        vars.meta_img = meta.cpu().numpy()
+        self.full_image = vars.meta_img
+        return vars.meta_img
+
+    def regenerate(self, vars: TestingVars,
+                   update_by_ss_map: Optional[np.ndarray] = None
+                   ) -> np.ndarray:
+        """Partial update: render the lattice again but write only the
+        patches whose latent window overlaps the selection map (z-space,
+        (zh, zw) 0/1); other regions keep their pixels."""
+        if vars.meta_img is None:
+            raise ValueError("regenerate needs vars.meta_img: call "
+                             "generate_with_vars first")
+        eng = self.engine
+        plan = eng.plan
+        positions = None
+        if update_by_ss_map is not None:
+            win, zw_total = plan.window, vars.local_latent.shape[2]
+            positions = [
+                p for p, (zr, zc) in enumerate(plan.z_starts)
+                if (update_by_ss_map[zr:zr + win][
+                    :, (zc + np.arange(win)) % zw_total] > 0).any()]
+        with torch.inference_mode():
+            patches = eng._render(
+                self.params_ema, self._to_device(vars.global_latent),
+                self._to_device(vars.local_latent),
+                [self._to_device(n) for n in vars.noises])
+            meta = torch.tensor(vars.meta_img, dtype=torch.float32,
+                                device=self.device)   # a copy
+            meta = eng._scatter(patches, meta=meta, positions=positions)
+        vars.meta_img = meta.cpu().numpy()
+        return vars.meta_img
+
+    def run_next(self, gen: torch.Generator, save: bool = True,
+                 write_gpu_time: bool = False) -> np.ndarray:
+        """One batch from `gen`: render, copy the meta image to the host
+        once, save the target crops (save=True).  write_gpu_time: time the
+        render, ended by a device synchronise, into accum_exec_times and
+        the per-day speed_benchmark_<date>.txt next to the outputs."""
+        t0 = time.perf_counter()
+        meta = self.engine.generate(self.params_ema, gen)
+        if write_gpu_time:
+            if meta.is_cuda:
+                torch.cuda.synchronize(meta.device)
+            dt = time.perf_counter() - t0
+            self.accum_exec_times.append(dt)
+            if self.save_root is not None:
+                os.makedirs(self.save_root, exist_ok=True)
+                day = datetime.date.today().strftime("%d-%m-%Y")
+                with open(os.path.join(self.save_root,
+                                       f"speed_benchmark_{day}.txt"),
+                          "a") as f:
+                    f.write(f"{dt:.6f}")
+        self.full_image = meta.cpu().numpy()
+        out = self.engine.crop_to_target(self.full_image)
+        if save and self.save_root is not None:
+            save_image_batch(out, self.save_root, self.cur_global_id)
+        self.cur_global_id += out.shape[0]
+        return out
+
+    def save_full_imgs(self) -> None:
+        """Save the last batch's uncropped meta images as <id>full.png
+        (after run_next: ids cur_global_id - batch + i)."""
+        if self.full_image is None or self.save_root is None:
+            raise ValueError("save_full_imgs needs a rendered batch and a "
+                             "save_root")
+        start = self.cur_global_id - self.full_image.shape[0]
+        save_image_batch(self.full_image, self.save_root, start,
+                         suffix="full")
+
+    def get_exec_time_stats(self, warmup: int = 10):
+        """Mean and std of the per-call times after the first `warmup`
+        (all of them when there are no more)."""
+        t = np.asarray(self.accum_exec_times[warmup:]
+                       or self.accum_exec_times)
+        return float(t.mean()), float(t.std())
+
+    def exit(self) -> None:
+        return
+
+
+@dataclass
+class CloseLoopPanoramaManager(BaseManager):
+    """Seamless 360-degree panoramas (reference
+    test_managers/close_loop_infinite_generation.py)."""
+
+    def task_specific_init(self, seed: Optional[int] = None) -> None:
+        super().task_specific_init(seed)
+        self.engine = self._build_engine(close_loop=True)
+
+
+@dataclass
+class InfiniteGenerationManager(BaseManager):
+    """Planar arbitrary-size canvases (reference
+    test_managers/infinite_generation.py)."""
+
+    def task_specific_init(self, seed: Optional[int] = None) -> None:
+        super().task_specific_init(seed)
+        self.engine = self._build_engine(close_loop=False)

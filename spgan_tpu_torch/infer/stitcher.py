@@ -1,13 +1,15 @@
-"""Patch-lattice planning for the close-loop (360-degree) panorama
-(counterpart of spgan_tpu/infer/stitcher.py; pure numpy).
+"""Patch-lattice planning for the close-loop (360-degree) panorama and
+the planar (infinite) canvas (counterpart of spgan_tpu/infer/stitcher.py;
+pure numpy).
 
   * step sizes from the receptive-field algebra (ops/spatial.py)
-  * lattice start points, plus 2 wrap columns
+  * lattice start points, plus 2 wrap columns when close-loop
   * per-position crop descriptors, including the reference's test-time
     quirks: x_size = window+1 in the p_* fractions and its circular-flag
     normalization
-  * circular read margins: every circular field is padded once with its
-    first `window` columns so all per-patch reads are plain slices.
+  * circular read margins (close-loop): every circular field is padded
+    once with its first `window` columns so all per-patch reads are plain
+    slices.
 """
 from __future__ import annotations
 
@@ -108,6 +110,55 @@ def build_close_loop_plan(g, target_h: int, target_w: int) -> LatticePlan:
         close_loop=True, target_h=target_h, target_w=target_w,
         meta_h=meta_h, meta_w=meta_w,
         num_steps_h=nh, num_steps_w=nw, num_steps_w_min=nw_min,
+        window=window, z_field_h=z_field_h, z_field_w=z_field_w,
+        geom=geom,
+        z_starts=np.array(z_starts, np.int32),
+        noise_starts=[np.array(v, np.int32) for v in noise_starts],
+        img_starts=np.array(img_starts, np.int32),
+        cp_scalars=np.array(cp, np.float64),
+        x_total=x_total, y_total=y_total,
+        noise_sizes=noise_sizes)
+
+
+def build_infinite_plan(g, target_h: int, target_w: int) -> LatticePlan:
+    """Planar (non-wrapping) lattice: the reference's infinite generation
+    (infinite_generation.py:268-291, 393-423)."""
+    geom = g.ts.stitch_geometry()
+    patch = geom.outfeat_sizes[-1]
+    px, zx = geom.pixelspace_step, geom.latentspace_step
+    ss_pad = g.ss.unfold_size
+    window = g.ts.ts_input_size + 2 * ss_pad
+
+    nh = math.ceil((target_h - patch) / px) + TEST_META_EXTRA_PAD
+    nw = math.ceil((target_w - patch) / px) + TEST_META_EXTRA_PAD
+    meta_h = px * (nh - 1) + patch
+    meta_w = px * (nw - 1) + patch
+
+    specs = g.ts.conv_specs_spatial()
+    z_field_h = in_size_chain(specs, meta_h)[0] + 2 * ss_pad
+    z_field_w = in_size_chain(specs, meta_w)[0] + 2 * ss_pad
+    x_total, y_total = z_field_h, z_field_w
+
+    z_starts, img_starts, cp = [], [], []
+    noise_starts = [[] for _ in geom.outfeat_steps]
+    size1 = window + 1
+    for i in range(nh):
+        for j in range(nw):
+            z_starts.append((i * zx, j * zx))
+            for li, ostep in enumerate(geom.outfeat_steps):
+                noise_starts[li].append((i * ostep, j * ostep))
+            img_starts.append((i * px, j * px))
+            cp.append((i * zx / x_total, (i * zx + size1) / x_total,
+                       j * zx / y_total, (j * zx + size1) / y_total, 0.0))
+
+    noise_sizes = [
+        (int(os_ * (nh - 1) + sz), int(os_ * (nw - 1) + sz))
+        for os_, sz in zip(geom.outfeat_steps, geom.outfeat_sizes)]
+
+    return LatticePlan(
+        close_loop=False, target_h=target_h, target_w=target_w,
+        meta_h=meta_h, meta_w=meta_w,
+        num_steps_h=nh, num_steps_w=nw, num_steps_w_min=nw,
         window=window, z_field_h=z_field_h, z_field_w=z_field_w,
         geom=geom,
         z_starts=np.array(z_starts, np.int32),

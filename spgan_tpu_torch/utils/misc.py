@@ -1,0 +1,55 @@
+"""Small utilities (counterpart of spgan_tpu/utils/misc.py: the class-path
+resolver of the yaml configs and seeding)."""
+from __future__ import annotations
+
+import importlib
+import random
+from typing import Any
+
+PACKAGE = "spgan_tpu_torch"
+
+# The reference's own dotted paths (its configs/*.yaml) and the JAX
+# package's resolve to this package's classes, so the shipped yamls and an
+# unmodified reference yaml work unchanged.
+REFERENCE_PATH_ALIASES = {
+    "models.spgan.spgan.InfinityGanGenerator":
+        "spgan_tpu_torch.models.generator.Generator",
+    "models.stylegan2discriminator.StyleGan2Discriminator":
+        "spgan_tpu_torch.models.discriminator.Discriminator",
+    "test_managers.close_loop_infinite_generation."
+    "InfiniteGenerationManagerPatchCoordsCloseLoop":
+        "spgan_tpu_torch.infer.close_loop.CloseLoopPanoramaManager",
+    "test_managers.infinite_generation.InfiniteGenerationManager":
+        "spgan_tpu_torch.infer.infinite.InfiniteGenerationManager",
+}
+
+
+def import_func(dotted: str) -> Any:
+    """The class or function a config's dotted path names (g_arch, d_arch,
+    task_manager), always inside this package: a reference path goes
+    through the alias table and a ``spgan_tpu.`` path becomes the same path
+    under ``spgan_tpu_torch.``, so resolving a config never imports the
+    JAX package.  Any other path raises ValueError."""
+    path = REFERENCE_PATH_ALIASES.get(dotted, dotted)
+    if path.startswith("spgan_tpu."):
+        path = PACKAGE + path[len("spgan_tpu"):]
+    module, _, name = path.rpartition(".")
+    if not module.startswith(PACKAGE + "."):
+        raise ValueError(f"{dotted!r} does not resolve inside {PACKAGE}")
+    try:
+        return getattr(importlib.import_module(module), name)
+    except (ImportError, AttributeError) as e:
+        raise ValueError(f"{dotted!r} -> {path!r} does not resolve inside "
+                         f"{PACKAGE}: {e}") from e
+
+
+def manually_seed(seed: int) -> None:
+    """Seed python's, numpy's and torch's global generators (the JAX
+    package seeds python and numpy; its jax keys are explicit, as the
+    port's torch.Generator draws are)."""
+    import numpy as np
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
