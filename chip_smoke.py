@@ -46,6 +46,25 @@ Phases (any failure exits non-zero; nothing is caught):
              float32, synthetic data): one warm-up step, timed plain steps
              and one R1+PPL step; the tap sampler must launch 8 times per
              plain step and 12 times on the PPL step; one traced step
+  8. train-cli  the training CLI (python -m spgan_tpu_torch.train), called
+             in-process at full width on configs/model/spgan_run5k.yaml
+             (batch 16, float32, source spr) with an .spr of 64 synthetic
+             256x768 panoramas and ticks of 5/10/10: 20 iterations, then
+             a resumed call to 30; checkpoints 20 and 30 kept, the tap
+             sampler 8 times an iteration; ms per iteration with data and
+             ticks beside phase 7's bare step, the loader's ms per batch;
+             the image grids once; checkpoint save/restore seconds and
+             bytes; the .npz export read back; the inference CLI renders
+             16 close-loop 384x768 PNGs from the checkpoint directory (48
+             grouped-kernel launches)
+  9. train-cli-synthetic  the training CLI on configs/model/spgan.yaml as
+             shipped (batch 16, float32, source synthetic):
+             TrainPipeline.make_batch timed alone, then four calls of 10
+             iterations, ordered thread, premade, premade, thread (the
+             pipeline's prefetch thread, or the same batches made
+             beforehand); the tap sampler 8 times an iteration; ms per
+             iteration of each beside phase 7's bare step and phase 8's
+             spr iteration
 Then prints the kernels JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -872,6 +891,7 @@ def phase_train(card_str):
     pipe = TrainPipeline(cfg, seed=0)
     batches = [{k: torch.as_tensor(v).cuda() for k, v in next(pipe).items()}
                for _ in range(TIMED_TRAIN_STEPS + 4)]
+    pipe.close()
 
     def run(i, reg):
         b = batches[i]
@@ -938,7 +958,414 @@ def phase_train(card_str):
         print(f"[trace] device busy {busy_ms:.1f} ms of the untraced {what} "
               f"{untraced_ms:.1f} ms: idle share "
               f"{100 * (1 - busy_ms / untraced_ms):.1f}%")
-    return launches
+    return launches, float(np.mean(plain))
+
+
+class TimedPipeline:
+    """A training pipeline that synchronises the card and stamps the host
+    clock as each batch is asked for, and at close(): consecutive stamps
+    bound one whole iteration (its batch, step and ticks).  It also times
+    each batch's own loading."""
+
+    def __init__(self, inner):
+        self.inner, self.stamps, self.load_ms = inner, [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        batch = next(self.inner)
+        self.load_ms.append((time.perf_counter() - self.stamps[-1]) * 1e3)
+        return batch
+
+    def close(self):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        self.inner.close()
+
+
+class PremadePipeline:
+    """Batches made before the run, handed out in order, with no thread."""
+
+    def __init__(self, batches):
+        self.batches = iter(batches)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self.batches)
+
+    def close(self):
+        pass
+
+
+def _run_train_cli(argv, pipelines, want, make=None):
+    """One in-process call of the training CLI with its stdout captured
+    (and echoed); its pipeline, made by `make` (default the loop's own
+    make_train_pipeline) and which must be a `want`, is wrapped in a
+    TimedPipeline, appended to `pipelines`.  Returns (final state,
+    stdout)."""
+    import contextlib
+    import io
+
+    from spgan_tpu_torch.train import loop
+    from spgan_tpu_torch.train.__main__ import main
+
+    orig = loop.make_train_pipeline
+    make = make or orig
+
+    def timed(cfg, seed=0):
+        pipe = make(cfg, seed=seed)
+        if not isinstance(pipe, want):
+            raise AssertionError(f"the config took {type(pipe)}, want "
+                                 f"{want}")
+        pipelines.append(TimedPipeline(pipe))
+        return pipelines[-1]
+
+    out = io.StringIO()
+    loop.make_train_pipeline = timed
+    try:
+        with contextlib.redirect_stdout(out):
+            state = main(argv)
+    finally:
+        loop.make_train_pipeline = orig
+        print(out.getvalue(), end="")
+    return state, out.getvalue()
+
+
+def _finite_log_lines(text, want_iters):
+    """The scalars of the CLI's log lines: every value finite, one line at
+    each of `want_iters`."""
+    import ast
+    import re
+
+    seen = []
+    for m in re.finditer(r"^\[train\] iter (\d+)/\d+ .*?: (\{.*\})$", text,
+                         re.M):
+        vals = ast.literal_eval(m.group(2))  # nan/inf do not parse
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite scalars {vals}")
+        seen.append(int(m.group(1)))
+    if seen != list(want_iters):
+        raise AssertionError(f"log lines at {seen}, want {list(want_iters)}")
+
+
+def _equal_trees(a, b, what):
+    from spgan_tpu_torch.tree import flatten
+
+    fa, fb = dict(flatten(a)), dict(flatten(b))
+    if fa.keys() != fb.keys() or not all(
+            torch.equal(fa[k].cpu(), fb[k].cpu()) for k in fa):
+        raise AssertionError(f"{what}: trees differ")
+
+
+def phase_train_cli(card_str, plain_step_ms):
+    """The training CLI at full width on an .spr of synthetic panoramas,
+    run from a temporary directory (its logs/ land there), then the
+    inference CLI on its checkpoints."""
+    import importlib.util
+    import re
+    import shutil
+
+    from spgan_tpu_torch.compat.load import (load_generator_params,
+                                             save_params_npz)
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.data.native_loader import write_records
+    from spgan_tpu_torch.data.pipeline import (NativeTrainPipeline,
+                                               SyntheticPanoramas)
+    from spgan_tpu_torch.models.discriminator import Discriminator
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.train import loop
+    from spgan_tpu_torch.train.checkpoint import CheckpointManager
+    from spgan_tpu_torch.train.state import create_train_state
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    shipped = os.path.join(repo, "configs", "model", "spgan_run5k.yaml")
+    old = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        os.chdir(tmp)
+        src = SyntheticPanoramas((768, 256), n=64, seed=3)
+        imgs = np.stack([src[i] for i in range(len(src))])
+        write_records("train.spr", imgs)
+        print(f"[train-cli] train.spr: {imgs.shape} uint8, "
+              f"{os.path.getsize('train.spr')} bytes")
+        # the shipped yaml with only the data file and the ticks changed
+        # (the log directory is logs/ under this working directory)
+        text = open(shipped).read()
+        for key, val in (("folder", os.path.join(tmp, "train.spr")),
+                         ("log_tick", 5), ("img_tick", 10),
+                         ("save_tick", 10)):
+            text, n = re.subn(rf"^(\s+{key}:) .*$", rf"\g<1> {val}", text,
+                              flags=re.M)
+            if n != 1:
+                raise AssertionError(f"{key}: {n} lines in {shipped}")
+        yaml_path = os.path.join(tmp, "spgan_run5k.yaml")
+        with open(yaml_path, "w") as f:
+            f.write(text)
+        cfg, ref = load_config(yaml_path), load_config(shipped)
+        ref.data_params.folder = cfg.data_params.folder
+        for k in ("log_tick", "img_tick", "save_tick"):
+            setattr(ref.log_params, k, getattr(cfg.log_params, k))
+        if cfg != ref or cfg.train_params.batch_size != 16 or \
+                cfg.train_params.compute_dtype != "float32":
+            raise AssertionError("the edited yaml differs from the shipped "
+                                 "one beyond its data file and ticks")
+        tp = cfg.train_params
+
+        sk.fused_sphere_conv_grouped.launches = 0
+        sk.fused_sphere_conv.launches = 0
+        ss.sphere_sample_taps.launches = 0
+        pipes = []
+        t0 = time.perf_counter()
+        state, out1 = _run_train_cli([yaml_path, "--max-iters", "20"], pipes,
+                                     NativeTrainPipeline)
+        wall1 = time.perf_counter() - t0
+        mgr = CheckpointManager(os.path.join("logs", "spgan_run5k", "ckpt"))
+        if state.step != 20 or mgr.steps() != [10, 20]:
+            raise AssertionError(f"first call: step {state.step}, "
+                                 f"checkpoints {mgr.steps()}")
+        t0 = time.perf_counter()
+        state, out2 = _run_train_cli([yaml_path, "--max-iters", "30"], pipes,
+                                     NativeTrainPipeline)
+        wall2 = time.perf_counter() - t0
+        if "Resumed from iter 20" not in out2 or state.step != 30 \
+                or mgr.steps() != [20, 30]:
+            raise AssertionError(f"second call: step {state.step}, "
+                                 f"checkpoints {mgr.steps()}")
+        _finite_log_lines(out1, range(5, 21, 5))
+        _finite_log_lines(out2, (25, 30))
+        # the loop renders grids only into tensorboard (as the JAX loop)
+        tb = importlib.util.find_spec("tensorboardX") is not None
+        per_forward = Generator.from_config(cfg).ss.n_layers
+        launches = {
+            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+            "fused_sphere_conv": sk.fused_sphere_conv.launches,
+            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        want = 2 * per_forward * 30 + (3 * 3 * per_forward if tb else 0)
+        if launches != {"fused_sphere_conv_grouped": 0,
+                        "fused_sphere_conv": 0, "sphere_sample_taps": want}:
+            raise AssertionError(f"training CLI launches {launches}, want "
+                                 f"{want} tap-sampler launches")
+
+        # the image grids of the EMA generator, called once here
+        g = Generator.from_config(cfg)
+        n0 = ss.sphere_sample_taps.launches
+        grids = loop.make_image_grids(cfg, g, seed=0, device="cuda")(
+            state.params_g_ema, state.step)
+        grid_launches = ss.sphere_sample_taps.launches - n0
+        shapes = {k: v.shape for k, v in grids.items()}
+        if shapes != {"samples/ema": (202, 808, 3),
+                      "samples/style_diversity": (101, 808, 3),
+                      "samples/structure_diversity": (101, 808, 3)} or \
+                grid_launches != 3 * per_forward or \
+                not all(v.std() > 0 for v in grids.values()):
+            raise AssertionError(f"grids {shapes}, {grid_launches} "
+                                 "tap-sampler launches")
+        print(f"[train-cli] image grids {shapes}, uint8, "
+              f"{grid_launches} tap-sampler launches")
+        cli_b3 = launches["sphere_sample_taps"] + grid_launches
+
+        # per-iteration times: stamps of both calls, R1 and saving
+        # iterations apart, the first 2 of each call apart
+        per_it, first = {}, {}
+        for pipe, start in zip(pipes, (0, 20)):
+            ms = np.diff(pipe.stamps) * 1e3
+            for i, t in enumerate(ms):
+                (first if i < 2 else per_it)[start + i] = float(t)
+        saving = {k: per_it.pop(k) for k in list(per_it)
+                  if (k + 1) % cfg.log_params.save_tick == 0}
+        r1 = {k: per_it.pop(k) for k in list(per_it)
+              if k % tp.d_reg_every == 0}
+        plain = np.array(list(per_it.values()))
+        loads = np.concatenate([p.load_ms for p in pipes])
+        print(f"[train-cli] {card_str}: spgan_run5k.yaml batch "
+              f"{tp.batch_size} {tp.compute_dtype}, spr: "
+              f"{plain.mean():.1f} ms per plain iteration with data and "
+              f"ticks (median {np.median(plain):.1f}, min {plain.min():.1f},"
+              f" max {plain.max():.1f}, {len(plain)} iterations after the "
+              f"first 2 of each call; phase 7 bare plain step "
+              f"{plain_step_ms:.1f} ms); saving iterations "
+              f"{ {k + 1: round(v, 1) for k, v in saving.items()} } ms; "
+              f"R1 iterations { {k: round(v, 1) for k, v in r1.items()} } ms;"
+              f" first 2 of each call "
+              f"{ {k: round(v, 1) for k, v in first.items()} } ms; calls "
+              f"{wall1:.1f} s and {wall2:.1f} s wall")
+        print(f"[train-cli] loader (C++ .spr, batch {tp.batch_size}): "
+              f"{loads.mean():.2f} ms per batch (median "
+              f"{np.median(loads):.2f}, max {loads.max():.2f}, "
+              f"{len(loads)} batches)")
+
+        # checkpoint save and restore of the final state, timed alone
+        one = CheckpointManager("ckpt_timing")
+        t0 = time.perf_counter()
+        one.save(state.step, state)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(one.path(state.step))
+        template = create_train_state(cfg, g, Discriminator.from_config(cfg),
+                                      torch.Generator().manual_seed(1),
+                                      device="cuda")
+        t0 = time.perf_counter()
+        back = one.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for name in ("params_g", "params_d", "params_g_ema"):
+            _equal_trees(getattr(back, name), getattr(state, name), name)
+        shutil.rmtree("ckpt_timing")
+        print(f"[train-cli] checkpoint of step {state.step}: save "
+              f"{save_s:.2f} s, restore {restore_s:.2f} s (to the card), "
+              f"{nbytes} bytes on disk; run's checkpoints "
+              f"{ {s: os.path.getsize(mgr.path(s)) for s in mgr.steps()} }")
+
+        # the .npz export of the EMA generator, read back
+        t0 = time.perf_counter()
+        save_params_npz("g_ema.npz", state.params_g_ema)
+        export_s = time.perf_counter() - t0
+        _equal_trees(load_generator_params("g_ema.npz", g, device="cuda"),
+                     state.params_g_ema, "npz export")
+        print(f"[train-cli] g_ema.npz: {os.path.getsize('g_ema.npz')} bytes"
+              f", written in {export_s:.2f} s, read back equal")
+
+        # the inference CLI from the run's checkpoint directory
+        m, per_batch = run_cli(
+            ["--model-config", yaml_path, "--test-config",
+             os.path.join(repo, "configs", "test", "spgan_384x768.yaml"),
+             "--ckpt", mgr.ckpt_dir, "--num-gen", "16", "--save-root",
+             "render"], want_per_batch=48)
+        _equal_trees(m.params_ema, state.params_g_ema, "infer CLI weights")
+        pngs = sorted(f for f in os.listdir("render") if f.endswith(".png"))
+        sizes = {png_size(os.path.join("render", f)) for f in pngs}
+        if len(pngs) != 16 or sizes != {(768, 384)}:
+            raise AssertionError(f"infer CLI wrote {len(pngs)} PNGs of "
+                                 f"sizes {sizes} (want 16 of 768x384)")
+        print(f"[train-cli] infer CLI from the checkpoint directory: "
+              f"{len(pngs)} PNGs of 768x384 (IHDR), {per_batch} "
+              f"grouped-kernel launches in the batch")
+        del m
+    finally:
+        os.chdir(old)
+        shutil.rmtree(tmp)
+    return {"sphere_sample_taps": cli_b3, "render_per_batch": per_batch,
+            "plain_ms": float(plain.mean())}
+
+
+SYNTHETIC_CLI_ITERS = 10
+
+
+def phase_train_cli_synthetic(card_str, plain_step_ms, spr_iter_ms):
+    """The training CLI on the shipped configs/model/spgan.yaml as it
+    stands (batch 16, float32, source synthetic), whose batches the Python
+    TrainPipeline makes on its prefetch thread (data/resize.py's numpy
+    resizes) beside the step.  make_batch is timed alone on this host,
+    making the run's SYNTHETIC_CLI_ITERS batches (seed 0, the pipeline's
+    draws); then four CLI calls of as many iterations from a temporary
+    directory, in the order thread, premade, premade, thread: the
+    pipeline's own thread, or those batches handed out with no thread, so
+    the pair of means prices the thread on the step."""
+    import shutil
+
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.data.pipeline import TrainPipeline
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.tree import flatten
+
+    shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "model", "spgan.yaml")
+    cfg = load_config(shipped)
+    tp = cfg.train_params
+    if (tp.batch_size, tp.compute_dtype, cfg.data_params.source) != \
+            (16, "float32", "synthetic"):
+        raise AssertionError(f"{shipped}: batch {tp.batch_size} "
+                             f"{tp.compute_dtype} {cfg.data_params.source}")
+
+    # make_batch alone on this thread (the prefetch thread stopped first)
+    pipe = TrainPipeline(cfg, seed=0)
+    pipe.close()
+    rng = np.random.RandomState(0)
+    premade, batch_ms = [], []
+    for _ in range(SYNTHETIC_CLI_ITERS):
+        t0 = time.perf_counter()
+        b = pipe.make_batch(rng)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if b["patch"].shape != (16, tp.patch_size, tp.patch_size, 3) or \
+                b["ac_coords"].shape != (16, 3) or \
+                not -1 <= b["patch"].min() < b["patch"].max() <= 1:
+            raise AssertionError("synthetic batch out of shape or range")
+        premade.append(b)
+    batch_ms = np.array(batch_ms[1:])
+    print(f"[train-cli-synthetic] {card_str}: TrainPipeline.make_batch "
+          f"(spgan.yaml, synthetic, batch 16) on the calling thread: "
+          f"{batch_ms.mean():.1f} ms per batch (median "
+          f"{np.median(batch_ms):.1f}, min {batch_ms.min():.1f}, max "
+          f"{batch_ms.max():.1f}, {len(batch_ms)} batches after the first)")
+
+    argv = [shipped, "--max-iters", str(SYNTHETIC_CLI_ITERS)]
+    want = 2 * Generator.from_config(cfg).ss.n_layers * SYNTHETIC_CLI_ITERS
+    order = ("thread", "premade", "premade", "thread")
+    old = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_synthetic_")
+    try:
+        os.chdir(tmp)
+        sk.fused_sphere_conv_grouped.launches = 0
+        sk.fused_sphere_conv.launches = 0
+        ss.sphere_sample_taps.launches = 0
+        pipes, per_call = [], []
+        for kind in order:
+            if kind == "thread":
+                state, _ = _run_train_cli(argv, pipes, TrainPipeline)
+            else:
+                state, _ = _run_train_cli(
+                    argv, pipes, PremadePipeline,
+                    make=lambda cfg, seed=0: PremadePipeline(premade))
+            if state.step != SYNTHETIC_CLI_ITERS or not all(
+                    torch.isfinite(v).all() for _, v in
+                    flatten(state.params_g_ema)):
+                raise AssertionError(f"synthetic CLI ({kind}): step "
+                                     f"{state.step}, or non-finite EMA "
+                                     "weights")
+            # iteration 0 is an R1 iteration, 1 the first plain one
+            per_call.append(np.diff(pipes[-1].stamps)[2:] * 1e3)
+        launches = {
+            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+            "fused_sphere_conv": sk.fused_sphere_conv.launches,
+            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        if launches != {"fused_sphere_conv_grouped": 0,
+                        "fused_sphere_conv": 0,
+                        "sphere_sample_taps": len(order) * want}:
+            raise AssertionError(f"synthetic CLI launches {launches}, want "
+                                 f"{len(order) * want} tap-sampler launches")
+    finally:
+        os.chdir(old)
+        shutil.rmtree(tmp)
+    ms = {k: np.concatenate([m for o, m in zip(order, per_call) if o == k])
+          for k in ("thread", "premade")}
+    waits = np.concatenate([p.load_ms[2:] for o, p in zip(order, pipes)
+                            if o == "thread"])
+    print(f"[train-cli-synthetic] {card_str}: spgan.yaml batch 16 float32, "
+          f"synthetic, ms per plain iteration (2 calls each, "
+          f"{len(ms['thread']) // 2} iterations after the first 2 of each, "
+          f"order {', '.join(order)}): prefetch thread "
+          f"{ms['thread'].mean():.1f} (median {np.median(ms['thread']):.1f},"
+          f" min {ms['thread'].min():.1f}, max {ms['thread'].max():.1f}), "
+          f"premade batches {ms['premade'].mean():.1f} (median "
+          f"{np.median(ms['premade']):.1f}, min {ms['premade'].min():.1f}, "
+          f"max {ms['premade'].max():.1f}): thread "
+          f"{100 * (ms['thread'].mean() / ms['premade'].mean() - 1):+.1f}%;"
+          f" call means {', '.join(f'{m.mean():.1f}' for m in per_call)}; "
+          f"phase 7 bare plain step {plain_step_ms:.1f} ms, phase 8 spr CLI "
+          f"iteration {spr_iter_ms:.1f} ms; waits on the prefetch queue "
+          f"{waits.mean():.2f} ms per batch (max {waits.max():.2f}); "
+          f"{len(order) * want} tap-sampler launches")
+    return {"batch_ms": float(batch_ms.mean()),
+            "thread_ms": float(ms["thread"].mean()),
+            "premade_ms": float(ms["premade"].mean())}
 
 
 def main():
@@ -961,7 +1388,9 @@ def main():
     cli_launches = phase_cli(card_str)
     patch_launches = phase_patch()
     phase_train_parity()
-    train_launches = phase_train(card_str)
+    train_launches, plain_step_ms = phase_train(card_str)
+    train_cli = phase_train_cli(card_str, plain_step_ms)
+    phase_train_cli_synthetic(card_str, plain_step_ms, train_cli["plain_ms"])
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -991,6 +1420,9 @@ def main():
             # its float32 body at the planar CLI's shapes vs the plain one
             line[-1]["planar_f32_max_abs_err"] = \
                 cli_launches["planar_f32_max_abs_err"]
+            # its launches rendering the training CLI's checkpoint
+            line[-1]["train_cli_render_launches_per_batch"] = \
+                train_cli["render_per_batch"]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -1000,6 +1432,9 @@ def main():
         # over the timed training run: 3 plain steps (8 each) + 1 R1+PPL
         # step (12)
         "launches": train_launches["sphere_sample_taps"],
+        # over the training CLI's 30 iterations (8 each) and one call of
+        # the image grids (3 forwards of 4 SS layers)
+        "train_cli_launches": train_cli["sphere_sample_taps"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)

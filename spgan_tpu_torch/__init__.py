@@ -10,8 +10,10 @@ a plain PyTorch version beside it that runs on the CPU.
 Implemented so far: the panorama engine (``infer.engine.PanoramaEngine``,
 close-loop and planar lattices) and everything it runs, the inference CLI
 (``python -m spgan_tpu_torch.infer``, test.py's counterpart) and the
-training step with its loop (``python -m spgan_tpu_torch.train``).  This
-package imports torch and never jax, and nothing of ``spgan_tpu``.
+training CLI (``python -m spgan_tpu_torch.train``, train.py's counterpart:
+yaml configs, the synthetic, npy and spr data sources, checkpoints with
+resume).  This package imports torch and never jax, and nothing of
+``spgan_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise (``device.resolve``).

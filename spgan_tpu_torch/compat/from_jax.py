@@ -10,7 +10,8 @@ the port's modules expect:
   * 4-D ``weight`` (conv, HWIO)        -> OIHW
   * 2-D ``weight`` (EqualLinear, in x out) -> (out, in)
 
-Every other leaf keeps its shape.
+Every other leaf keeps its shape.  ``params_to_jax`` is the inverse: the
+port's parameters in the JAX layout, as numpy.
 """
 from __future__ import annotations
 
@@ -51,12 +52,28 @@ def _leaf(name: str, value) -> torch.Tensor:
     return torch.tensor(a)
 
 
-def _convert(node, name: str = ""):
+def _leaf_to_jax(name: str, value: torch.Tensor) -> np.ndarray:
+    a = value.detach().to("cpu", torch.float32).numpy()
+    if name == "weight" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+    elif name == "weight" and a.ndim == 2:
+        a = a.T                              # (out, in) -> (in, out)
+    return a.copy(order="C")
+
+
+def _convert(node, name: str = "", leaf=_leaf):
     if isinstance(node, Mapping):
-        return {k: _convert(v, k) for k, v in node.items()}
+        return {k: _convert(v, k, leaf) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_convert(v, name) for v in node]
-    return _leaf(name, node)
+        return [_convert(v, name, leaf) for v in node]
+    return leaf(name, node)
+
+
+def params_to_jax(params: Any) -> dict:
+    """The JAX package's parameter tree (float32 numpy) of the port's
+    `params` (generator or discriminator): the inverse of
+    params_from_jax."""
+    return _convert(params, leaf=_leaf_to_jax)
 
 
 def params_from_jax(tree_or_flat: Any, device=None) -> dict:

@@ -1,37 +1,47 @@
-"""Generator weights from a file (counterpart of spgan_tpu/compat/load.py:
-``load_generator_params``).
+"""Generator weights to and from files (counterpart of
+spgan_tpu/compat/load.py: ``save_params_npz``, ``load_generator_params``).
 
-  * ``.npz``: the flat ``a/b/0/c`` keys that spgan_tpu's
-    ``compat.load.save_params_npz`` writes (JAX layout);
-  * ``.ckpt`` / ``.pth`` / ``.pth.tar``: a reference PyTorch checkpoint
-    with a ``g_ema`` entry (or a bare state dict);
-  * a directory is an Orbax training checkpoint, which only JAX reads:
-    it raises, naming the export that makes an ``.npz`` of it.
+``load_generator_params`` reads
+  * a directory of the port's training checkpoints (train/checkpoint.py):
+    the EMA generator of the newest; an Orbax directory (the JAX package's
+    training checkpoints) raises, naming the export that makes an ``.npz``
+    of it;
+  * ``.npz``: the flat ``a/b/0/c`` keys that ``save_params_npz`` (either
+    package's) writes, in the JAX layout;
+  * ``.pt``: one checkpoint file of the port (``<step>.pt``), read with
+    ``weights_only=True``: its EMA generator;
+  * any other file (``.ckpt`` / ``.pth`` / ``.pth.tar``): a reference
+    PyTorch checkpoint with a ``g_ema`` entry (or a bare state dict).
+
+The training package is imported only for a checkpoint of the port.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Iterator, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from spgan_tpu_torch.compat.from_jax import params_from_jax
+from spgan_tpu_torch.compat.from_jax import (params_from_jax, params_to_jax,
+                                             unflatten)
 from spgan_tpu_torch.compat.torch_import import import_torch_generator
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.models.generator import _tree_to
+from spgan_tpu_torch.tree import flatten
 
 
-def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(key, leaf) pairs with the ``a/b/0/c`` keys of save_params_npz."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from flatten(v, f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from flatten(v, f"{prefix}{i}/")
-    else:
-        yield prefix[:-1], tree
+def save_params_npz(path: str, params: Any) -> None:
+    """Write the port's parameters as the JAX package's save_params_npz
+    does: float32 arrays in the JAX layout under flat ``a/b/0/c`` keys,
+    compressed."""
+    np.savez_compressed(path, **dict(flatten(params_to_jax(params))))
+
+
+def _ema_from_checkpoint(tensors: Dict[str, torch.Tensor]) -> dict:
+    prefix = "params_g_ema/"
+    return unflatten({k[len(prefix):]: v for k, v in tensors.items()
+                      if k.startswith(prefix)})
 
 
 def _check_against(params: dict, template: dict, path: str) -> None:
@@ -53,15 +63,28 @@ def load_generator_params(path: str, g, device=None) -> dict:
     `device` (default cuda)."""
     dev = resolve(device)
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an Orbax training checkpoint), which "
-            "only the JAX package reads: export its EMA generator with "
-            "spgan_tpu.compat.load.save_params_npz(path.npz, "
-            "load_generator_params(dir, g)) and pass the .npz")
-    if path.endswith(".npz"):
+        from spgan_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                      read_checkpoint)
+
+        mgr = CheckpointManager(path)
+        step = mgr.latest_step()
+        if step is None:
+            raise ValueError(
+                f"{path} holds no checkpoint of the port; if it is an Orbax "
+                "training checkpoint, which only the JAX package reads, "
+                "export its EMA generator with "
+                "spgan_tpu.compat.load.save_params_npz(path.npz, "
+                "load_generator_params(dir, g)) and pass the .npz")
+        params = _ema_from_checkpoint(
+            read_checkpoint(mgr.path(step))["tensors"])
+    elif path.endswith(".npz"):
         with np.load(path) as data:
             params = params_from_jax({k: data[k] for k in data.files},
                                      device="cpu")
+    elif path.endswith(".pt"):
+        from spgan_tpu_torch.train.checkpoint import read_checkpoint
+
+        params = _ema_from_checkpoint(read_checkpoint(path)["tensors"])
     else:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         sd = ckpt.get("g_ema", ckpt) if isinstance(ckpt, dict) else ckpt

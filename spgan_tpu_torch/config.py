@@ -1,8 +1,10 @@
 """Typed configuration: the port's own copy of the fields the panorama
-engine, the managers and the training step read, with the shipped defaults
-of ``spgan_tpu/config.py`` (reference configs/model/spgan.yaml and
-configs/test/spgan_384x768.yaml), and ``load_config``, which reads the
-reference-compatible yaml files (``utils/yaml.py``, no PyYAML needed).
+engine, the managers, the training step and the training loop read (the
+train, data, log and test sections of a model yaml, and the test yaml),
+with the shipped defaults of ``spgan_tpu/config.py`` (reference
+configs/model/spgan.yaml and configs/test/spgan_384x768.yaml), and
+``load_config``, which reads the reference-compatible yaml files
+(``utils/yaml.py``, no PyYAML needed).
 """
 from __future__ import annotations
 
@@ -87,6 +89,38 @@ class TrainParams:
 
 
 @dataclass
+class DataParams:
+    dataset: str = "Matterport3d"
+    num_train: int = 10000
+    lmdb_root: str = "infinityGAN-lmdb"
+    raw_data_root: str = "data/matterport3d_panorama"
+    # "synthetic" | "npy" | "spr" (the port reads these three) | "folder" |
+    # "lmdb" (not ported, ROADMAP A10)
+    source: str = "synthetic"
+    folder: Optional[str] = None
+    lmdb_key_prefix: Optional[str] = None
+
+
+@dataclass
+class LogParams:
+    n_save_sample: int = 64
+    log_tick: int = 1000
+    img_tick: int = 3000
+    eval_tick: int = 15000
+    save_tick: int = 3000
+    fid_ext2_tick: int = 30000
+
+
+@dataclass
+class TestParams:
+    # FID is not ported (ROADMAP A11): the training loop says so and runs
+    # without it, as the JAX package does without Inception weights
+    calc_fid: bool = True
+    calc_fid_ext2: bool = True
+    n_fid_sample: int = 10000
+
+
+@dataclass
 class TaskConfig:
     """Inference-task config (the reference's test yaml)."""
 
@@ -113,6 +147,9 @@ class TaskConfig:
 @dataclass
 class Config:
     train_params: TrainParams = field(default_factory=TrainParams)
+    data_params: DataParams = field(default_factory=DataParams)
+    log_params: LogParams = field(default_factory=LogParams)
+    test_params: TestParams = field(default_factory=TestParams)
     task: TaskConfig = field(default_factory=TaskConfig)
     exp_name: str = "spgan"
     log_dir: str = "logs"
@@ -133,8 +170,6 @@ UNPORTED_TRAIN_DEFAULTS: Dict[str, Any] = {
     "steps_per_call": 1,
     "pallas_train_sampler": "auto",
 }
-# yaml sections the JAX package reads for training and evaluation only
-UNUSED_SECTIONS = ("data_params", "log_params", "test_params")
 
 
 def _apply_section(dc, data: Dict[str, Any]) -> Dict[str, Any]:
@@ -160,16 +195,17 @@ def load_config(model_yaml: Optional[str] = None,
     yaml under ``task``, then ``overrides`` ({"task.seed": 1, ...}).
 
     A train_params key of the JAX package that the port has no field for
-    raises NotImplementedError unless it holds the JAX default.  The
-    sections the inference path does not read (data_params, log_params,
-    test_params) and keys no package knows are named in one warning."""
+    raises NotImplementedError unless it holds the JAX default.  Keys no
+    section knows are named in one warning."""
     cfg = Config()
     ignored: Dict[str, Any] = {}
     if model_yaml is not None:
         raw = yaml.load(model_yaml) or {}
-        for section in UNUSED_SECTIONS:
-            if section in raw:
-                ignored[section] = sorted(raw[section] or {})
+        for section in ("data_params", "log_params", "test_params"):
+            unknown = _apply_section(getattr(cfg, section),
+                                     raw.get(section) or {})
+            if unknown:
+                ignored[f"{section} (unrecognized)"] = unknown
         unknown = _apply_section(cfg.train_params,
                                  raw.get("train_params") or {})
         for k in list(unknown):
@@ -197,6 +233,5 @@ def load_config(model_yaml: Optional[str] = None,
             raise AttributeError(f"no config field {dotted!r}")
         setattr(obj, last, v)
     if ignored:
-        warnings.warn("Config keys not used by the port's inference path, "
-                      f"ignored: {ignored}")
+        warnings.warn(f"Unrecognized config keys ignored: {ignored}")
     return cfg

@@ -1,34 +1,41 @@
 """Host data pipeline: pano -> square resize -> flip -> random patch crop
-(counterpart of spgan_tpu/data/pipeline.py: PatchCropper and the synthetic
-source).
+(counterpart of spgan_tpu/data/pipeline.py).
+
+Sources (``data_params.source``): "synthetic" (smooth noise panoramas, for
+smoke runs), "npy" (a packed (N, H, W, 3) uint8 array, memory-mapped) and
+"spr" (an SPR1 record file, data/native_loader.py).  "folder" and "lmdb"
+are not ported (ROADMAP A10).
+
+``make_train_pipeline`` gives an .spr file to the native C++ loader, as
+the JAX package does, and every other source to ``TrainPipeline``: a
+background thread that makes batches from the source in the JAX package's
+draw order, square-resizing with cv2's Lanczos4 arithmetic
+(data/resize.py).  The native loader resizes once, bilinearly, and skips
+extra_pre_resize (the JAX package's loader does the same).
 
 Batches are numpy: {"patch": (B,P,P,3) float32 in [-1,1], "ac_coords":
 (B,3) float32}.  The training loop moves them to the device.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.data.native_loader import NativeRecordLoader, read_records
+from spgan_tpu_torch.data.resize import resize_lanczos4_u8, resize_linear_u8
 
-
-def _resize(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """uint8 (H,W,3) -> uint8 (h,w,3): bilinear, antialiased when
-    shrinking (torch on the CPU)."""
-    t = torch.as_tensor(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    y = F.interpolate(t.float(), size=(h, w), mode="bilinear",
-                      align_corners=False,
-                      antialias=h < img.shape[0] or w < img.shape[1])
-    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+# batches the background thread of TrainPipeline makes ahead
+PREFETCH = 4
 
 
 def center_square_resize(img: np.ndarray, size: int) -> np.ndarray:
-    """Center-crop to a square, then resize to size x size."""
+    """Center-crop to a square, then resize to size x size (cv2's
+    Lanczos4)."""
     h, w = img.shape[:2]
     if h > w:
         t = (h - w) // 2
@@ -37,7 +44,7 @@ def center_square_resize(img: np.ndarray, size: int) -> np.ndarray:
         t = (w - h) // 2
         img = img[:, t:t + h]
     if img.shape[0] != size:
-        img = _resize(img, size, size)
+        img = resize_lanczos4_u8(img, size, size)
     return img
 
 
@@ -68,13 +75,8 @@ class PatchCropper:
 
 class SyntheticPanoramas:
     """Deterministic random panoramas (smooth noise) for smoke runs: n
-    uint8 noise images of (h/8, w/8) upsampled to data_size (w, h).
-
-    The JAX package's synthetic source resizes with cv2 (and its pipeline
-    with Lanczos); this one uses torch's bilinear resize, because cv2 and
-    PIL are not dependencies of the port.  Its pixels therefore differ from
-    the JAX source's; the statistics (smooth noise in [0, 255]) are the
-    same."""
+    uint8 noise images of (h/8, w/8) upsampled to data_size (w, h) with
+    cv2's linear arithmetic, as the JAX package's synthetic source."""
 
     def __init__(self, data_size=(768, 256), n: int = 512, seed: int = 0):
         w, h = data_size
@@ -86,24 +88,51 @@ class SyntheticPanoramas:
         return self.n
 
     def __getitem__(self, idx: int) -> np.ndarray:
-        return _resize(self.base[idx % self.n], self.h, self.w)
+        return resize_linear_u8(self.base[idx % self.n], self.h, self.w)
+
+
+def make_data_source(cfg: Config) -> Tuple[int, Callable[[int], np.ndarray]]:
+    """(number of images, load(idx) -> (H, W, 3) uint8) of
+    cfg.data_params.source."""
+    dp = cfg.data_params
+    if dp.source == "synthetic":
+        src = SyntheticPanoramas(cfg.train_params.data_size,
+                                 n=max(64, min(dp.num_train, 512)))
+        return len(src), src.__getitem__
+    if dp.source in ("npy", "spr"):
+        arr = (np.load(dp.folder, mmap_mode="r") if dp.source == "npy"
+               else read_records(dp.folder))
+        return arr.shape[0], lambda idx: np.asarray(arr[idx % arr.shape[0]])
+    if dp.source in ("folder", "lmdb"):
+        raise NotImplementedError(
+            f"data_params.source {dp.source!r} is not ported (ROADMAP A10); "
+            "use npy, spr or synthetic")
+    raise ValueError(f"unknown data source {dp.source!r}; the port reads "
+                     "synthetic | npy | spr")
 
 
 class TrainPipeline:
-    """Training batches from the synthetic source, made on the calling
-    thread: pre-resize, resize to full_size, random flip, patch crop,
-    [-1,1]."""
+    """Training batches made by one background thread from
+    make_data_source (PREFETCH batches ahead): per sample, the
+    image index, the square resize to extra_pre_resize then to full_size
+    (two Lanczos stages, as the reference), a random flip and the patch
+    crop, all drawn from one np.random.RandomState(seed) in the JAX
+    package's order.  close() stops the thread."""
 
     def __init__(self, cfg: Config, seed: int = 0):
         tp = cfg.train_params
         self.tp = tp
-        self.source = SyntheticPanoramas(tp.data_size)
+        self.n, self.load = make_data_source(cfg)
         self.cropper = PatchCropper(tp.full_size, tp.patch_size,
                                     tp.coord_num_dir)
         self.rng = np.random.RandomState(seed)
+        self._q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
 
-    def _sample_one(self, rng):
-        img = self.source[rng.randint(0, len(self.source))]
+    def _sample_one(self, rng: np.random.RandomState):
+        img = self.load(rng.randint(0, self.n))
         if self.tp.extra_pre_resize is not None:
             img = center_square_resize(img, self.tp.extra_pre_resize)
         img = center_square_resize(img, self.tp.full_size)
@@ -111,11 +140,66 @@ class TrainPipeline:
             img = img[:, ::-1]
         return self.cropper(img, rng)
 
+    def make_batch(self, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+        patches, acs = zip(*(self._sample_one(rng)
+                             for _ in range(self.tp.batch_size)))
+        return {"patch": np.stack(patches).astype(np.float32) / 127.5 - 1.0,
+                "ac_coords": np.stack(acs).astype(np.float32)}
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                b = self.make_batch(self.rng)
+            except Exception as e:  # handed to the consumer, raised there
+                b = e
+            while not self._stop.is_set():
+                try:
+                    self._q.put(b, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(b, Exception):
+                return
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        patches, acs = zip(*(self._sample_one(self.rng)
-                             for _ in range(self.tp.batch_size)))
-        return {"patch": np.stack(patches).astype(np.float32) / 127.5 - 1.0,
-                "ac_coords": np.stack(acs).astype(np.float32)}
+        b = self._q.get()
+        if isinstance(b, Exception):
+            raise RuntimeError("the data pipeline's worker failed") from b
+        return b
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+class NativeTrainPipeline:
+    """Training batches straight from the C++ record loader (an .spr
+    file), made on the calling thread."""
+
+    def __init__(self, cfg: Config, seed: int = 0):
+        tp = cfg.train_params
+        self._ld = NativeRecordLoader(
+            cfg.data_params.folder, full_size=tp.full_size,
+            patch_size=tp.patch_size, batch=tp.batch_size, seed=seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        return self._ld.next_batch()
+
+    def close(self) -> None:
+        self._ld.close()
+
+
+def make_train_pipeline(cfg: Config, seed: int = 0):
+    """The native loader for an .spr source (source "spr", or a folder
+    that ends in .spr), TrainPipeline otherwise.  A loader that cannot be
+    built raises."""
+    dp = cfg.data_params
+    if dp.source == "spr" or (dp.folder or "").endswith(".spr"):
+        return NativeTrainPipeline(cfg, seed=seed)
+    return TrainPipeline(cfg, seed=seed)

@@ -11,9 +11,10 @@ flag):
         [--debug] [--device cuda|cpu]
 
 Runs on cuda unless --device cpu.  Without --ckpt (or with --random-init)
-the generator has random weights from the seed.  --ckpt takes the JAX
-package's .npz export (spgan_tpu.compat.load.save_params_npz) or a
-reference PyTorch checkpoint; not an Orbax directory.
+the generator has random weights from the seed.  --ckpt takes an .npz
+export (either package's save_params_npz), a reference PyTorch checkpoint,
+or the checkpoint directory (or one checkpoint file) of a training run of
+the port (python -m spgan_tpu_torch.train); not an Orbax directory.
 """
 import argparse
 import glob
@@ -38,8 +39,9 @@ def parse_args(argv=None):
     ap.add_argument("--model-config", required=True)
     ap.add_argument("--test-config", required=True)
     ap.add_argument("--ckpt", default=None,
-                    help="JAX .npz params export, or a reference PyTorch "
-                         ".ckpt/.pth/.pth.tar with a g_ema entry")
+                    help=".npz params export, a reference PyTorch "
+                         ".ckpt/.pth/.pth.tar with a g_ema entry, or a "
+                         "port training run's checkpoint directory")
     ap.add_argument("--random-init", action="store_true",
                     help="skip checkpoint loading, use seeded random weights")
     ap.add_argument("--exp-suffix", default=None,

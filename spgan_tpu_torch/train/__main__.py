@@ -1,24 +1,64 @@
-"""python -m spgan_tpu_torch.train [--debug] [--max-iters N] [--seed S]
-[--device cuda|cpu]: train the shipped model (Config() defaults, the
-reference's configs/model/spgan.yaml) on the synthetic source."""
+"""Training CLI of the port (counterpart of the repo's train.py):
+
+    python -m spgan_tpu_torch.train configs/model/spgan_run5k.yaml \\
+        [--debug] [--seed N] [--max-iters N] [--profile-dir DIR \\
+        --profile-start I --profile-iters N] [--device cuda|cpu]
+
+Trains the model of the yaml on its data source (data_params), writing
+<log_dir>/<exp_name>/{ckpt,tb,codes}, and resumes from the newest
+checkpoint there.  --debug runs one iteration at batch <= 8 and writes
+nothing.  Runs on cuda unless --device cpu.  Export the EMA generator of
+a run with spgan_tpu_torch.compat.load.save_params_npz, or pass its ckpt
+directory to python -m spgan_tpu_torch.infer --ckpt.
+"""
 import argparse
 
-from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.config import load_config
 from spgan_tpu_torch.train.loop import train
 
 
 def main(argv=None):
+    """Run the CLI; returns the final TrainState."""
     ap = argparse.ArgumentParser(prog="python -m spgan_tpu_torch.train")
+    ap.add_argument("config", help="model yaml (reference spgan.yaml layout)")
     ap.add_argument("--debug", action="store_true",
-                    help="one iteration, then print its metrics")
-    ap.add_argument("--max-iters", type=int, default=None)
+                    help="one iteration at batch <= 8, nothing written")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="default cuda; cpu runs the plain versions")
-    ap.add_argument("--log-every", type=int, default=100)
+    ap.add_argument("--max-iters", type=int, default=None)
+    ap.add_argument("--baseline-ckpt", default=None,
+                    help="transfer-learn from an InfinityGAN baseline "
+                         "checkpoint (not ported: ROADMAP A8b.3)")
+    ap.add_argument("--coordinator", default=None,
+                    help="multi-host coordinator (not ported: ROADMAP A12)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the "
+                         "profiled iterations here")
+    ap.add_argument("--profile-start", type=int, default=3,
+                    help="first traced iteration, counted from the loop's "
+                         "start (default 3: after the warm-up)")
+    ap.add_argument("--profile-iters", type=int, default=5,
+                    help="number of iterations in the trace window")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    train(Config(), max_iters=args.max_iters, seed=args.seed,
-          device=args.device, debug=args.debug, log_every=args.log_every)
+    if args.baseline_ckpt is not None:
+        raise NotImplementedError("--baseline-ckpt (baseline transfer, "
+                                  "compat/baseline.py) is not ported "
+                                  "(ROADMAP A8b.3)")
+    if (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        raise NotImplementedError("multi-process training (--coordinator, "
+                                  "--num-processes, --process-id) is not "
+                                  "ported (ROADMAP A12)")
+    cfg = load_config(args.config)
+    if args.debug:
+        cfg.train_params.batch_size = min(cfg.train_params.batch_size, 8)
+    return train(cfg, debug=args.debug, seed=args.seed,
+                 max_iters=args.max_iters, device=args.device,
+                 profile_dir=args.profile_dir,
+                 profile_start=args.profile_start,
+                 profile_iters=args.profile_iters)
 
 
 if __name__ == "__main__":

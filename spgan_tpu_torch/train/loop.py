@@ -1,63 +1,289 @@
-"""Training loop (counterpart of spgan_tpu/train/loop.py: the step
-cadence).  Lazy R1 every d_reg_every iterations, lazy PPL every
-g_reg_every iterations from g_path_start on.  Checkpoints, tensorboard,
-image grids and FID are not ported yet.
+"""Training loop (counterpart of spgan_tpu/train/loop.py).
 
-    python -m spgan_tpu_torch.train [--debug] [--max-iters N]
+  * lazy R1 every d_reg_every, lazy PPL every g_reg_every from
+    g_path_start on, on absolute iterations;
+  * scalars every log_tick (stdout; tensorboard when tensorboardX
+    imports), image grids of the EMA generator every img_tick (tensorboard
+    only), rolling checkpoints every save_tick, auto-resume from the newest;
+  * --debug: one full iteration, nothing written to disk;
+  * an exception is appended to <log_dir>/<exp_name>/error-log.txt and
+    re-raised.
+
+Iteration i's step draws from a generator seeded with (seed, i) only, so
+a resumed run's steps draw as an uninterrupted run's would (the JAX
+package folds the step into its key).  The data pipeline, however, is
+rebuilt from `seed` on resume and reads the data order from its start
+again, as in the JAX package: a resumed run sees other batches than an
+uninterrupted one.  FID (eval_tick) is not ported (ROADMAP A11).
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Optional
+import traceback
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from spgan_tpu_torch.config import Config
-from spgan_tpu_torch.data.pipeline import TrainPipeline
+from spgan_tpu_torch.data.pipeline import make_train_pipeline
 from spgan_tpu_torch.device import resolve
-from spgan_tpu_torch.models.discriminator import Discriminator
 from spgan_tpu_torch.models.generator import Generator
+from spgan_tpu_torch.models.latents import LatentSampler
+from spgan_tpu_torch.ops.spatial import out_size_chain
+from spgan_tpu_torch.train.checkpoint import CheckpointManager
 from spgan_tpu_torch.train.state import TrainState, create_train_state
-from spgan_tpu_torch.train.step import make_train_step
+from spgan_tpu_torch.train.step import _DTYPES, make_train_step
+from spgan_tpu_torch.utils.misc import backup_files, import_func
+
+# tensorboard event files are closed and reopened every this many
+# iterations (reference train.py:35), so a long run's logs sync in chunks
+TB_PARTITION_STEPS = 100_000
 
 
-def train(cfg: Config, max_iters: Optional[int] = None, seed: int = 0,
-          device=None, debug: bool = False,
-          log_every: int = 100) -> TrainState:
-    """Train from random weights (seed) on the synthetic source for
-    min(iter, max_iters) iterations, on `device` (default cuda).  debug:
-    one iteration, then print its metrics.  Returns the final state.
+def crossed_tick(it: int, adv: int, n: int) -> bool:
+    """Whether the span (it - adv, it] of iterations holds a multiple of
+    n."""
+    return (it // n) > ((it - adv) // n)
+
+
+def iteration_generator(seed: int, it: int, device) -> torch.Generator:
+    """The generator of iteration `it`'s draws: a function of (seed, it)
+    only."""
+    s = np.random.SeedSequence([seed, it]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
+
+
+def _to_grid(imgs: np.ndarray, ncol: int = 8) -> np.ndarray:
+    """(B,H,W,3) in [-1,1] -> one (H*rows, W*ncol, 3) uint8 grid."""
+    b, h, w, c = imgs.shape
+    ncol = min(ncol, b)
+    nrow = (b + ncol - 1) // ncol
+    canvas = np.zeros((nrow * h, ncol * w, c), np.float32)
+    for i in range(b):
+        r, cidx = divmod(i, ncol)
+        canvas[r * h:(r + 1) * h, cidx * w:(cidx + 1) * w] = imgs[i]
+    canvas = np.clip((canvas + 1) / 2, 0, 1)
+    return (canvas * 255).astype(np.uint8)
+
+
+def make_image_grids(cfg: Config, g: Generator, seed: int, device
+                     ) -> Callable[[dict, int], Dict[str, np.ndarray]]:
+    """grids(params_ema, it) -> {"samples/ema", "samples/style_diversity",
+    "samples/structure_diversity"}: uint8 grids of the EMA generator on
+    random training crops (reference train.py:463-622).  "ema" renders
+    min(n_save_sample, 16) fixed latents; style diversity one fixed local
+    latent under min(n, 8) fresh global ones; structure diversity one
+    fixed global latent under fresh local ones.  The crops and fresh
+    latents of iteration `it` come from (seed + 1, it)."""
+    tp = cfg.train_params
+    dev = resolve(device)
+    cdt = _DTYPES[tp.compute_dtype]
+    sampler = LatentSampler(global_dim=tp.global_latent_dim,
+                            local_dim=tp.local_latent_dim,
+                            ts_input_size=tp.ts_input_size,
+                            ss_unfold_size=tp.ss_unfold_size,
+                            mixing=tp.mixing)
+    sizes = out_size_chain(g.ts.conv_specs_spatial(), tp.ts_input_size)
+    margins = g.training_skip_margins()
+    n_vis = min(cfg.log_params.n_save_sample, 16)
+    n_div = min(n_vis, 8)
+
+    def unmixed(gen, n):
+        z = torch.randn((n, tp.global_latent_dim), generator=gen, device=dev)
+        return torch.stack([z, z], dim=1)
+
+    fixed = torch.Generator(device=dev).manual_seed(seed + 1)
+    vis_gl, vis_ll = unmixed(fixed, n_vis), sampler.sample_local(fixed, n_vis)
+
+    def forward(params, gl, ll, gen):
+        n = gl.shape[0]
+        coords, _, cp = g.ss.coord_grid.sample_training(gen, n)
+        noises = [torch.randn((n, s, s, 1), generator=gen,
+                              device=dev).to(cdt) for s in sizes]
+        out = g.apply(params, global_latent=gl.to(cdt),
+                      local_latent=ll.to(cdt), coords=coords, cp=cp,
+                      noises=noises, ss_tables_mode="sample",
+                      ts_skip_margins=margins)["gen"]
+        return out.float().cpu().numpy()
+
+    @torch.no_grad()
+    def grids(params_ema: dict, it: int) -> Dict[str, np.ndarray]:
+        gen = iteration_generator(seed + 1, it, dev)
+        ema = forward(params_ema, vis_gl, vis_ll, gen)
+        style = forward(params_ema, unmixed(gen, n_div),
+                        vis_ll[:1].repeat(n_div, 1, 1, 1), gen)
+        structure = forward(params_ema, vis_gl[:1].repeat(n_div, 1, 1),
+                            sampler.sample_local(gen, n_div), gen)
+        return {"samples/ema": _to_grid(ema),
+                "samples/style_diversity": _to_grid(style),
+                "samples/structure_diversity": _to_grid(structure)}
+
+    return grids
+
+
+def _open_writer(exp_root: str):
+    """A tensorboardX SummaryWriter, or None when tensorboardX does not
+    import (it is optional, as in the JAX package)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(os.path.join(exp_root, "tb"))
+
+
+def _log_tick(writer, it: int, total: int, scalars: dict, dt: float,
+              state: TrainState, dev: torch.device) -> None:
+    vals = {k: float(v) for k, v in scalars.items()}
+    print(f"[train] iter {it}/{total} ({dt * 1e3:.1f} ms/iter on {dev}): "
+          f"{ {k: round(v, 4) for k, v in vals.items()} }", flush=True)
+    if writer is None:
+        return
+    for k, v in vals.items():
+        writer.add_scalar(f"losses/{k}", v, it)
+    writer.add_scalar("utils/iters_per_sec", 1.0 / max(dt, 1e-9), it)
+    # one representative weight per module (reference train.py:454-458)
+    pg = state.params_g
+    for name, w in (("ts_conv0_w", pg["ts"]["convs"][0]["conv"]["weight"]),
+                    ("ss_sphere0_w",
+                     pg["ss"]["blocks"][0]["sphere"]["conv"]["weight"])):
+        writer.add_histogram(f"params/{name}",
+                             w.detach().float().cpu().numpy().ravel(), it)
+    if dev.type == "cuda":
+        writer.add_scalar("memory/bytes_in_use",
+                          torch.cuda.memory_allocated(dev) / 2 ** 20, it)
+        writer.add_scalar("memory/peak_bytes_in_use",
+                          torch.cuda.max_memory_allocated(dev) / 2 ** 20, it)
+
+
+def train(cfg: Config, debug: bool = False, seed: int = 0,
+          max_iters: Optional[int] = None, device=None,
+          profile_dir: Optional[str] = None, profile_start: int = 3,
+          profile_iters: int = 5) -> TrainState:
+    """Train for min(iter, max_iters) iterations (resuming from the newest
+    checkpoint under <log_dir>/<exp_name>/ckpt) on `device` (default
+    cuda); returns the final state.  profile_dir: a torch.profiler Chrome
+    trace of iterations [profile_start, profile_start + profile_iters),
+    counted from the loop's start, is written there.
 
     With compute_dtype float32, TF32 is turned off for cuDNN convolutions
     and cuBLAS matmuls (PyTorch enables it for cuDNN by default), so the
     step computes in float32 as the reference's float32 config does."""
-    tp = cfg.train_params
+    tp, lp = cfg.train_params, cfg.log_params
     if tp.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = resolve(device)
-    g = Generator.from_config(cfg)
-    d = Discriminator.from_config(cfg)
-    state = create_train_state(cfg, g, d, torch.Generator().manual_seed(seed),
+    exp_root = os.path.join(cfg.log_dir, cfg.exp_name)
+
+    writer = ckpt_mgr = None
+    if not debug:
+        os.makedirs(exp_root, exist_ok=True)
+        writer = _open_writer(exp_root)
+        ckpt_mgr = CheckpointManager(os.path.join(exp_root, "ckpt"))
+        backup_files(os.getcwd(), os.path.join(exp_root, "codes"))
+        if cfg.test_params.calc_fid:
+            print(" [!] FID is not ported (ROADMAP A11); FID evaluation "
+                  "disabled.")
+
+    g = import_func(tp.g_arch).from_config(cfg)
+    d = import_func(tp.d_arch).from_config(cfg)
+    state = create_train_state(cfg, g, d,
+                               torch.Generator().manual_seed(seed),
                                device=dev)
-    step = make_train_step(cfg, g, d)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    pipeline = TrainPipeline(cfg, seed=seed)
+    start_iter = 0
+    if ckpt_mgr is not None and ckpt_mgr.latest_step() is not None:
+        state = ckpt_mgr.restore(state)
+        start_iter = state.step
+        print(f" [*] Resumed from iter {start_iter}")
+    step_fn = make_train_step(cfg, g, d)
+    grids = (make_image_grids(cfg, g, seed, dev) if writer is not None
+             else None)
+    pipeline = make_train_pipeline(cfg, seed=seed)
+
     total = tp.iter if max_iters is None else min(tp.iter, max_iters)
-    if debug:
-        total = min(total, 1)
-    t0 = time.perf_counter()
-    for it in range(total):
-        batch = next(pipeline)
-        real_patch = torch.as_tensor(batch["patch"]).to(dev)
-        real_ac = torch.as_tensor(batch["ac_coords"]).to(dev)
-        do_r1 = it % tp.d_reg_every == 0
-        do_ppl = it % tp.g_reg_every == 0 and it >= tp.g_path_start
-        state, metrics = step(state, real_patch, real_ac, gen,
-                              do_r1=do_r1, do_ppl=do_ppl)
-        if debug or (it + 1) % log_every == 0 or it + 1 == total:
-            vals = {k: round(float(v), 4) for k, v in metrics.items()}
-            dt = (time.perf_counter() - t0) / (it + 1)
-            print(f"[train] iter {it + 1}/{total} ({dt * 1e3:.1f} ms/iter "
-                  f"on {dev}): {vals}", flush=True)
+    reg_carry: Dict[str, torch.Tensor] = {}
+    prof = prof_start = None
+    it = start_iter
+    t_last, it_last = time.perf_counter(), it
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        while it < total:
+            if (profile_dir is not None and prof is None
+                    and it - start_iter == profile_start):
+                from torch.profiler import ProfilerActivity, profile
+
+                sync()
+                acts = [ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    acts.append(ProfilerActivity.CUDA)
+                prof = profile(activities=acts)
+                prof.__enter__()
+                prof_start = it
+            batch = next(pipeline)
+            do_r1 = it % tp.d_reg_every == 0
+            do_ppl = it % tp.g_reg_every == 0 and it >= tp.g_path_start
+            state, metrics = step_fn(
+                state, torch.as_tensor(batch["patch"]).to(dev),
+                torch.as_tensor(batch["ac_coords"]).to(dev),
+                iteration_generator(seed, it, dev),
+                do_r1=do_r1, do_ppl=do_ppl)
+            it += 1
+            if prof is not None and it - prof_start == profile_iters:
+                sync()
+                prof.__exit__(None, None, None)
+                done, prof = prof, None
+                os.makedirs(profile_dir, exist_ok=True)
+                path = os.path.join(profile_dir, "train_trace.json")
+                done.export_chrome_trace(path)
+                print(f" [*] Profiler trace of iterations [{prof_start}, "
+                      f"{it}) written to {path}")
+            if do_r1:
+                reg_carry["r1"] = metrics["r1"]
+            if do_ppl:
+                reg_carry["path"] = metrics["path"]
+                reg_carry["path_lengths"] = metrics["path_lengths"]
+
+            if debug:
+                print(" [debug] one iteration OK —",
+                      {k: round(float(v), 4) for k, v in metrics.items()},
+                      flush=True)
+                break
+            if crossed_tick(it, 1, lp.log_tick):
+                now = time.perf_counter()
+                _log_tick(writer, it, total, {**metrics, **reg_carry},
+                          (now - t_last) / (it - it_last), state, dev)
+                t_last, it_last = now, it
+            if crossed_tick(it, 1, lp.img_tick) and writer is not None:
+                for tag, grid in grids(state.params_g_ema, it).items():
+                    writer.add_image(tag, grid, it, dataformats="HWC")
+            if crossed_tick(it, 1, lp.save_tick) and ckpt_mgr is not None:
+                ckpt_mgr.save(it, state)
+            if (writer is not None and it > start_iter
+                    and crossed_tick(it, 1, TB_PARTITION_STEPS)):
+                writer.close()
+                writer = _open_writer(exp_root)
+    except Exception:
+        if not debug:
+            os.makedirs(exp_root, exist_ok=True)
+            with open(os.path.join(exp_root, "error-log.txt"), "a") as f:
+                f.write(traceback.format_exc() + "\n")
+        raise
+    finally:
+        if prof is not None:  # the loop left inside the window
+            prof.__exit__(None, None, None)
+            print(f" [!] Profiler window cut at iteration {it}; no trace "
+                  "written")
+        elif profile_dir is not None and prof_start is None:
+            print(f" [!] Profiler window never opened: the loop ended at "
+                  f"iteration {it}, before profile_start={profile_start} "
+                  f"(counted from iteration {start_iter}); no trace written")
+        pipeline.close()
+        if writer is not None:
+            writer.close()
     return state

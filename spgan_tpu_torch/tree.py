@@ -4,7 +4,7 @@ does), so two trees of the same structure give their leaves in the same
 order whatever order their dicts were built in."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -31,3 +31,16 @@ def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
     """A tree of `tree`'s structure holding `leaves` in tree_leaves order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) pairs with the ``a/b/0/c`` keys of the JAX package's
+    save_params_npz, in the tree's own order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flatten(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flatten(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree

@@ -1,5 +1,6 @@
 """Small utilities (counterpart of spgan_tpu/utils/misc.py: the class-path
-resolver of the yaml configs and seeding)."""
+resolver of the yaml configs, seeding and the code snapshot of a training
+run)."""
 from __future__ import annotations
 
 import importlib
@@ -53,3 +54,29 @@ def manually_seed(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+# the source files a training run snapshots
+BACKUP_EXTS = (".py", ".cc", ".cu", ".cuh", ".yaml", ".yml")
+
+
+def backup_files(cur_dir: str, backup_dir: str) -> int:
+    """Copy the source files under `cur_dir` into `backup_dir` (the
+    training run's code snapshot, as the reference's libs/backup.py);
+    returns how many."""
+    import os
+    import shutil
+
+    n = 0
+    for root, dirs, files in os.walk(cur_dir):
+        dirs[:] = [d for d in dirs
+                   if d not in {".git", "logs", "__pycache__", "tests",
+                                ".fid-cache", "_build"}]
+        for f in files:
+            if f.endswith(BACKUP_EXTS):
+                src = os.path.join(root, f)
+                dst = os.path.join(backup_dir, os.path.relpath(src, cur_dir))
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                shutil.copy2(src, dst)
+                n += 1
+    return n

@@ -83,14 +83,17 @@ def test_yaml_reader_raises_outside_subset(text, lineno):
 @pytest.mark.parametrize("model", MODEL_YAMLS, ids=os.path.basename)
 @pytest.mark.parametrize("test", TEST_YAMLS, ids=os.path.basename)
 def test_load_config_matches_jax(model, test):
-    """Every field the port has holds the JAX package's value."""
+    """Every field the port has holds the JAX package's value, and a
+    shipped yaml loads without a warning."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         want = jax_load_config(model, test)
-        with pytest.warns(UserWarning, match="data_params"):
-            got = load_config(model, test)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = load_config(model, test)
     assert (got.exp_name, got.log_dir) == (want.exp_name, want.log_dir)
-    for sec in ("train_params", "task"):
+    for sec in ("train_params", "data_params", "log_params", "test_params",
+                "task"):
         for f in dataclasses.fields(getattr(got, sec)):
             a = getattr(getattr(got, sec), f.name)
             b = getattr(getattr(want, sec), f.name)
@@ -132,12 +135,14 @@ def test_unported_train_key_raises_unless_default(tmp_path, key, value):
 def test_unknown_keys_warn_once(tmp_path):
     p = tmp_path / "m.yaml"
     p.write_text("train_params:\n  mystery: 1\ntest_params:\n  calc_fid: "
-                 "true\n")
+                 "false\n  riddle: 2\n")
     with pytest.warns(UserWarning) as rec:
-        load_config(str(p))
+        cfg = load_config(str(p))
     assert len(rec) == 1
     assert "mystery" in str(rec[0].message)
     assert "test_params" in str(rec[0].message)
+    assert "riddle" in str(rec[0].message)
+    assert cfg.test_params.calc_fid is False
 
 
 @pytest.mark.parametrize("path", [

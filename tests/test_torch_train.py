@@ -359,17 +359,18 @@ def test_patch_cropper_and_pipeline():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_train_sets_tf32_for_compute_dtype(monkeypatch, dtype):
+def test_train_sets_tf32_for_compute_dtype(monkeypatch, tmp_path, dtype):
     """train() turns TF32 off for cuDNN and cuBLAS when it computes in
     float32, and leaves the flags as they were for bfloat16."""
     from spgan_tpu_torch.train import loop
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.chdir(tmp_path)
     _, (cfg, g, d) = _models()
     cfg.train_params.compute_dtype = dtype
-    monkeypatch.setattr(loop.Generator, "from_config", lambda c: g)
-    monkeypatch.setattr(loop.Discriminator, "from_config", lambda c: d)
+    monkeypatch.setattr(Generator, "from_config", lambda c: g)
+    monkeypatch.setattr(Discriminator, "from_config", lambda c: d)
     state = loop.train(cfg, max_iters=0, device="cpu")
     assert state.step == 0
     want = dtype != "float32"
@@ -395,16 +396,18 @@ def test_training_after_inference_in_one_process():
     assert all(t is None or bool(torch.isfinite(t).all()) for t in grads)
 
 
-def test_train_loop_cadence_on_cpu(monkeypatch, capsys):
+def test_train_loop_cadence_on_cpu(monkeypatch, tmp_path, capsys):
     """train(): iterations with the JAX cadence (R1 at it % d_reg_every ==
     0, PPL at it % g_reg_every == 0 from g_path_start) on the CPU."""
     from spgan_tpu_torch.train import loop
 
+    monkeypatch.chdir(tmp_path)
     _, (cfg, g, d) = _models()
     tp = cfg.train_params
     tp.d_reg_every, tp.g_reg_every, tp.g_path_start = 2, 3, 1
-    monkeypatch.setattr(loop.Generator, "from_config", lambda c: g)
-    monkeypatch.setattr(loop.Discriminator, "from_config", lambda c: d)
+    cfg.log_params.log_tick = 2
+    monkeypatch.setattr(Generator, "from_config", lambda c: g)
+    monkeypatch.setattr(Discriminator, "from_config", lambda c: d)
     calls = []
     real_step = loop.make_train_step
 
@@ -419,7 +422,7 @@ def test_train_loop_cadence_on_cpu(monkeypatch, capsys):
         return call
 
     monkeypatch.setattr(loop, "make_train_step", spy)
-    state = loop.train(cfg, max_iters=4, device="cpu", log_every=2)
+    state = loop.train(cfg, max_iters=4, device="cpu")
     assert state.step == 4
     assert calls == [(True, False), (False, False), (True, False),
                      (False, True)]
