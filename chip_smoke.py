@@ -65,6 +65,23 @@ Phases (any failure exits non-zero; nothing is caught):
              beforehand); the tap sampler 8 times an iteration; ms per
              iteration of each beside phase 7's bare step and phase 8's
              spr iteration
+  10. train-options  the training CLI with every ported option at full
+             width (configs/model/spgan.yaml, batch 16, float32): the tap
+             sampler against its plain version at the extrapolated
+             windows' widths and tables (45, 65; exact; the grids
+             themselves run on the patch grids, as the JAX package's do);
+             call A on an LMDB of 64 synthetic
+             256x768 panoramas (Paeth PNGs decoded in-tree) with the
+             projection head, SS noise, ss_mapping, the extrapolated
+             grids, steps_per_call 4 and lr_sch, 12 iterations, the grids
+             called twice, then the inference CLI renders its checkpoint
+             directory in bf16 (16 PNGs, 48 grouped-kernel launches); call
+             B on a folder of the same PNGs with SGD and a frozen baseline
+             transfer, 8 iterations, the frozen G leaves and the whole D
+             unchanged bit for bit; the loaders' ms per batch, ms per
+             plain step beside phase 7's, the prefetch queue's waits of
+             the first loop call apart from the later ones, the tap
+             sampler's launches against the count printed beforehand
 Then prints the kernels JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -830,7 +847,7 @@ def phase_train_parity():
         ss.sphere_sample_taps.launches = 0
         gd, md = step.d_grads(st.params_g, st.params_d, real.to(dev),
                               real_ac.to(dev), dr.d)
-        gr, r1 = step.r1_grads(st.params_d, real.to(dev))
+        gr, r1 = step.r1_grads(st.params_d, real.to(dev), real_ac.to(dev))
         gg, mg = step.g_grads(st.params_g, st.params_d, dr.g)
         gp, pen, _, plen = step.ppl_grads(st.params_g, dr,
                                           st.mean_path_length)
@@ -1368,6 +1385,431 @@ def phase_train_cli_synthetic(card_str, plain_step_ms, spr_iter_ms):
             "premade_ms": float(ms["premade"].mean())}
 
 
+OPTIONS_ITERS = 12   # call A: three loop calls of steps_per_call 4
+FROZEN_ITERS = 8     # call B
+N_PANORAMAS = 64
+
+
+class StepTimer:
+    """While entered, every TrainStep call (one training iteration's step,
+    also inside steps_per_call's calls) is synchronised before and after;
+    its flags and ms are recorded in .steps."""
+
+    def __enter__(self):
+        from spgan_tpu_torch.train import step as step_mod
+
+        self.cls, self.steps = step_mod.TrainStep, []
+        orig = self.orig = self.cls.__call__
+
+        def timed(obj, state, patch, ac, gen, do_r1, do_ppl):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(obj, state, patch, ac, gen, do_r1=do_r1, do_ppl=do_ppl)
+            torch.cuda.synchronize()
+            self.steps.append((do_r1 or do_ppl,
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+
+        self.cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+    def plain_ms(self):
+        """The unregularised steps after the first 2."""
+        return np.array([ms for i, (reg, ms) in enumerate(self.steps)
+                         if i >= 2 and not reg])
+
+
+def _edited_yaml(shipped, path, sections):
+    """`shipped` with the keys of `sections` ({section: {key: value}}) set:
+    a key the file has keeps its line, a key it lacks goes in under its
+    section's header."""
+    import re
+
+    def literal(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        return str(list(v)) if isinstance(v, (list, tuple)) else str(v)
+
+    text = open(shipped).read()
+    for section, keys in sections.items():
+        for key, val in keys.items():
+            text, n = re.subn(rf"^(\s+{key}:) .*$", rf"\g<1> {literal(val)}",
+                              text, flags=re.M)
+            if n == 0:
+                text, n = re.subn(rf"^({section}:)$",
+                                  rf"\g<1>\n  {key}: {literal(val)}", text,
+                                  flags=re.M)
+            if n != 1:
+                raise AssertionError(f"{section}.{key}: {n} lines")
+    with open(path, "w") as f:
+        f.write(text)
+    return os.path.abspath(path)
+
+
+def _baseline_state_dict(params):
+    """An InfinityGAN-baseline-shaped torch state dict (reference key
+    names, torch layouts) of the port's generator `params`: the texture
+    synthesizer and the SS planar convs, these at conv_stack.{i}; no
+    sphere convs, shortcuts or sphere skip convs."""
+    sd = {}
+
+    def linear(prefix, p):
+        sd[f"{prefix}.weight"] = p["weight"]
+        sd[f"{prefix}.bias"] = p["bias"]
+
+    def modconv(prefix, p):
+        sd[f"{prefix}.weight"] = p["weight"][None]
+        linear(f"{prefix}.modulation", p["modulation"])
+
+    ts = params["ts"]
+    for i, p in enumerate(ts["mapping"]):
+        linear(f"texture_synthesizer.mapping.{i + 1}", p)
+    for i, p in enumerate(ts["convs"]):
+        pre = f"texture_synthesizer.convs.{i}"
+        modconv(f"{pre}.conv", p["conv"])
+        sd[f"{pre}.activate.bias"] = p["act_bias"]
+        sd[f"{pre}.noise.weight"] = p["noise"]["weight"].reshape(1)
+    for j, p in enumerate(ts["to_rgbs"]):
+        pre = f"texture_synthesizer.to_rgbs.{j}"
+        modconv(f"{pre}.conv", p["conv"])
+        sd[f"{pre}.bias"] = p["bias"].reshape(1, 3, 1, 1)
+    for i, blk in enumerate(params["ss"]["blocks"]):
+        pre = f"structure_synthesizer.implicit_model.conv_stack.{i}.conv"
+        modconv(f"{pre}.conv", blk["planar"]["conv"])
+        sd[f"{pre}.activate.bias"] = blk["planar"]["act_bias"]
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def _ext_sampler_check(card_str):
+    """B3 against its plain version at the widths of the extrapolated
+    grids' first SS layers (W = 45 and 65, C = 259, B = 16) on those
+    windows' tables with their own column margins, float32 and bf16,
+    exact; its row plan at each.  The widest rows B3 stages; the grids
+    themselves do not run it (their windows need the patch grids)."""
+    from spgan_tpu_torch.geometry.coords import CoordGrid
+    from spgan_tpu_torch.geometry.sphere_grid import sphere_offset_tables_batch
+    from spgan_tpu_torch.models.generator import skip_margin
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    B, C = 16, 259
+    rng = np.random.RandomState(10)
+    out = {}
+    for H in (45, 65):
+        _, _, cp = CoordGrid().sample_training_extrap(
+            torch.Generator(device="cuda").manual_seed(H), B, H)
+        tables = {k: v.contiguous()
+                  for k, v in sphere_offset_tables_batch(cp, H, H).items()}
+        margin = skip_margin(tables)
+        x32 = torch.as_tensor(rng.randn(B, H, H, C).astype(np.float32)).cuda()
+        err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            err = max(err, check_close(
+                f"sphere_sample_taps EXT H={H} {dtype}",
+                ss.sphere_sample_taps(x, tables, margin),
+                ss.sphere_sample_taps_plain(x, tables, margin), 0.0, 0.0))
+            slots, smem, per_sm = ss.staging_plan(
+                torch.cuda.current_device(), H, C, dtype == torch.bfloat16)
+            print(f"[train-options] sphere_sample_taps EXT H=W={H} C={C} "
+                  f"B={B} {str(dtype)[6:]}: exact (max_abs_err {err:.1e}), "
+                  f"column margin {margin}, {slots} row slots, {smem} bytes "
+                  f"dynamic shared memory, {per_sm} blocks per SM")
+        ms = time_ms(lambda: ss.sphere_sample_taps(x32, tables, margin), 10)
+        print(f"[train-options] {card_str}: sphere_sample_taps EXT H={H} "
+              f"f32 back to back {ms:.4f} ms")
+        out[H] = err
+    return max(out.values())
+
+
+def phase_train_options(card_str, plain_step_ms):
+    """Every ported training option at full width (configs/model/spgan.yaml,
+    batch 16, float32) in two in-process calls of the training CLI.  Call
+    A: an LMDB of synthetic panoramas (Paeth-filtered PNGs, decoded
+    in-tree), the projection head, SS noise, ss_mapping, the extrapolated
+    grids, steps_per_call 4 and lr_sch; then the inference CLI renders its
+    checkpoint directory in bf16.  Call B: a folder of the same PNGs, SGD
+    and a frozen baseline transfer; the frozen G leaves and the whole D
+    must come out unchanged."""
+    import importlib.util
+    import shutil
+
+    from spgan_tpu_torch.compat.baseline import import_torch_baseline_generator
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.data.pipeline import SyntheticPanoramas, TrainPipeline
+    from spgan_tpu_torch.models.discriminator import Discriminator
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.ops.spatial import out_size_chain
+    from spgan_tpu_torch.train import loop
+    from spgan_tpu_torch.train.checkpoint import CheckpointManager
+    from spgan_tpu_torch.train.state import create_train_state
+    from spgan_tpu_torch.tree import flatten
+    from spgan_tpu_torch.utils.png import encode_png
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from helpers.lmdb_writer import write_lmdb  # stdlib only
+
+    shipped = os.path.join(repo, "configs", "model", "spgan.yaml")
+    t_phase = time.perf_counter()
+    ext_err = _ext_sampler_check(card_str)
+    old = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    try:
+        os.chdir(tmp)
+        src = SyntheticPanoramas((768, 256), n=N_PANORAMAS, seed=5)
+        t0 = time.perf_counter()
+        pngs = [encode_png(src[i], filter_type=4) for i in range(len(src))]
+        write_lmdb("lmdb", {f"256-{i:08d}".encode(): d
+                            for i, d in enumerate(pngs)})
+        os.makedirs("folder")
+        for i, d in enumerate(pngs):
+            with open(os.path.join("folder", f"pano{i:03d}.png"), "wb") as f:
+                f.write(d)
+        print(f"[train-options] {len(pngs)} panoramas 256x768 as Paeth PNGs "
+              f"({sum(map(len, pngs))} bytes) in an LMDB and a folder, "
+              f"{time.perf_counter() - t0:.1f} s")
+        a_yaml = _edited_yaml(shipped, "options_lmdb.yaml", {
+            "data_params": {"source": "lmdb",
+                            "folder": os.path.abspath("lmdb")},
+            "train_params": {"coord_use_pd": True, "coord_pd_w": 1.0,
+                             "ss_disable_noise": False, "ss_mapping": True,
+                             "no_ext": False, "steps_per_call": 4,
+                             "lr_sch": [8]},
+            "log_params": {"log_tick": 4, "img_tick": 8, "save_tick": 12}})
+        a_bf16 = _edited_yaml(a_yaml, "options_lmdb_bf16.yaml", {
+            "train_params": {"compute_dtype": "bfloat16"}})
+        b_yaml = _edited_yaml(shipped, "frozen_folder.yaml", {
+            "data_params": {"source": "folder",
+                            "folder": os.path.abspath("folder")},
+            "train_params": {"optimizer": "sgd", "freeze": True},
+            "log_params": {"log_tick": 4, "save_tick": 1000}})
+        cfg_a, cfg_b = load_config(a_yaml), load_config(b_yaml)
+        for cfg in (cfg_a, cfg_b):
+            tp = cfg.train_params
+            if (tp.batch_size, tp.compute_dtype, tp.local_latent_dim,
+                    tp.global_latent_dim, tp.ss_n_layers) != \
+                    (16, "float32", 256, 512, 4):
+                raise AssertionError("the options yaml is not the shipped "
+                                     "model at full width")
+        want_a_opts = dict(coord_use_pd=True, coord_pd_w=1.0,
+                           ss_disable_noise=False, ss_mapping=True,
+                           no_ext=False, steps_per_call=4, lr_sch=[8])
+        for k, v in want_a_opts.items():
+            if getattr(cfg_a.train_params, k) != v:
+                raise AssertionError(f"call A yaml: {k}")
+
+        # the loaders alone on this thread: decoding and make_batch
+        loader_ms = {}
+        for name, cfg in (("lmdb", cfg_a), ("folder", cfg_b)):
+            pipe = TrainPipeline(cfg, seed=0)
+            pipe.close()
+            if not np.array_equal(pipe.load(3), src[3]):
+                raise AssertionError(f"{name}: decoded pixels differ")
+            dec = []
+            for rep in range(3):
+                t0 = time.perf_counter()
+                for i in range(16):
+                    pipe.load(16 * rep + i)
+                dec.append((time.perf_counter() - t0) * 1e3)
+            rng = np.random.RandomState(0)
+            batch = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                pipe.make_batch(rng)
+                batch.append((time.perf_counter() - t0) * 1e3)
+            loader_ms[name] = float(np.mean(batch[1:]))
+            print(f"[train-options] {card_str}: {name} source, on the calling"
+                  f" thread: decoding 16 PNGs {np.mean(dec):.1f} ms (each "
+                  f"{', '.join(f'{t:.1f}' for t in dec)}); make_batch of 16 "
+                  f"(decode, two Lanczos4 resizes, flip, crop) "
+                  f"{loader_ms[name]:.1f} ms (each "
+                  f"{', '.join(f'{t:.1f}' for t in batch[1:])}, after the "
+                  f"first {batch[0]:.1f})")
+
+        tb = importlib.util.find_spec("tensorboardX") is not None
+        per_fwd = Generator.from_config(cfg_a).ss.n_layers
+        mults = loop.ext_mult_list(cfg_a)
+        # the three grids on training crops run the sample-mode convs; the
+        # extrapolated ones run on the patch grids and launch no tap sampler
+        per_grids = 3 * per_fwd
+        want_a = 2 * per_fwd * OPTIONS_ITERS + (per_grids if tb else 0)
+        want_b = 2 * per_fwd * FROZEN_ITERS
+        print(f"[train-options] expected tap-sampler launches: call A "
+              f"{want_a} (2 x {per_fwd} an iteration x {OPTIONS_ITERS}"
+              f"{f' + {per_grids} for the grids at iteration 8' if tb else ''}"
+              f"; no PPL before g_path_start), the grids called twice "
+              f"{2 * per_grids} (3 forwards x {per_fwd} on training crops; "
+              f"the ext mults {mults} on the patch grids, none), call B "
+              f"{want_b}")
+
+        def counts():
+            return {"fused_sphere_conv_grouped":
+                    sk.fused_sphere_conv_grouped.launches,
+                    "fused_sphere_conv": sk.fused_sphere_conv.launches,
+                    "sphere_sample_taps": ss.sphere_sample_taps.launches}
+
+        def zero():
+            sk.fused_sphere_conv_grouped.launches = 0
+            sk.fused_sphere_conv.launches = 0
+            ss.sphere_sample_taps.launches = 0
+
+        def want(n):
+            return {"fused_sphere_conv_grouped": 0, "fused_sphere_conv": 0,
+                    "sphere_sample_taps": n}
+
+        # ---- call A ---------------------------------------------------
+        pipes_a = []
+        zero()
+        with StepTimer() as timer_a:
+            t0 = time.perf_counter()
+            state_a, out_a = _run_train_cli(
+                [a_yaml, "--max-iters", str(OPTIONS_ITERS)], pipes_a,
+                TrainPipeline)
+            wall_a = time.perf_counter() - t0
+        launches_a = counts()["sphere_sample_taps"]
+        if counts() != want(want_a):
+            raise AssertionError(f"call A launches {counts()}, want {want_a}")
+        mgr = CheckpointManager(os.path.join("logs", "options_lmdb", "ckpt"))
+        if state_a.step != OPTIONS_ITERS or mgr.steps() != [12]:
+            raise AssertionError(f"call A: step {state_a.step}, checkpoints "
+                                 f"{mgr.steps()}")
+        _finite_log_lines(out_a, (4, 8, 12))
+        flat_g = dict(flatten(state_a.params_g))
+        if "coord_proj" not in state_a.params_d or \
+                "ss/mapping/7/weight" not in flat_g or \
+                "ss/blocks/3/planar/noise/weight" not in flat_g:
+            raise AssertionError("call A's state lacks the option leaves")
+        steps_a = timer_a.plain_ms()
+        stamps = np.array(pipes_a[0].stamps)
+        calls = np.diff(stamps[[0, 4, 8, 12]]) * 1e3
+        waits = np.array(pipes_a[0].load_ms)
+        waits_a = (waits[:4], waits[4:])
+        print(f"[train-options] {card_str}: call A (lmdb, pd head, SS noise, "
+              f"ss_mapping, EXT grids, steps_per_call 4, lr_sch [8]): "
+              f"{steps_a.mean():.1f} ms per plain step (median "
+              f"{np.median(steps_a):.1f}, min {steps_a.min():.1f}, max "
+              f"{steps_a.max():.1f}, {len(steps_a)} steps after the first 2, "
+              f"each synchronised) beside phase 7's bare step "
+              f"{plain_step_ms:.1f} ms; loop calls of 4 iterations with data "
+              f"and ticks {', '.join(f'{c:.1f}' for c in calls)} ms (the "
+              f"first holds R1 and the warm-up, the last the checkpoint "
+              f"save), {calls[1] / 4:.1f} ms an iteration in the plain one; "
+              f"prefetch-queue waits per batch: first loop call "
+              f"{', '.join(f'{w:.2f}' for w in waits_a[0])} ms, later calls "
+              f"mean {waits_a[1].mean():.2f} (max {waits_a[1].max():.2f}, "
+              f"{len(waits_a[1])} batches); {wall_a:.1f} s wall; "
+              f"{launches_a} tap-sampler launches")
+
+        # the image grids, extrapolated ones included, called twice
+        g = Generator.from_config(cfg_a)
+        grids = loop.make_image_grids(cfg_a, g, seed=0, device="cuda")
+        zero()
+        for _ in range(2):
+            out = grids(state_a.params_g_ema, state_a.step)
+        if counts() != want(2 * per_grids):
+            raise AssertionError(f"grids launches {counts()}")
+        ts_in = cfg_a.train_params.ts_input_size // 2
+        size = {m: out_size_chain(g.ts.conv_specs_spatial(),
+                                  int(round(ts_in * m)) * 2 + 1)[-1]
+                for m in mults}
+        shapes = {k: v.shape for k, v in out.items()}
+        want_shapes = {"samples/ema": (202, 808, 3),
+                       "samples/style_diversity": (101, 808, 3),
+                       "samples/structure_diversity": (101, 808, 3),
+                       **{f"samples/ema_ext{m}":
+                          (16 // max(1, 8 // m) * size[m],
+                           max(1, 8 // m) * size[m], 3) for m in mults}}
+        if shapes != want_shapes or not all(v.std() > 0
+                                            for v in out.values()):
+            raise AssertionError(f"grids {shapes}, want {want_shapes}")
+        print(f"[train-options] {card_str}: image grids {shapes}; ms of each "
+              f"(second call, forward + copy to the host) "
+              f"{ {k: round(v, 1) for k, v in grids.ms.items()} }")
+
+        # the inference CLI from call A's checkpoint directory, bf16
+        m, per_batch = run_cli(
+            ["--model-config", a_bf16, "--test-config",
+             os.path.join(repo, "configs", "test", "spgan_384x768.yaml"),
+             "--ckpt", mgr.ckpt_dir, "--num-gen", "16", "--save-root",
+             "render"], want_per_batch=48)
+        _equal_trees(m.params_ema, state_a.params_g_ema, "infer CLI weights")
+        pngs_out = sorted(f for f in os.listdir("render")
+                          if f.endswith(".png"))
+        sizes = {png_size(os.path.join("render", f)) for f in pngs_out}
+        if len(pngs_out) != 16 or sizes != {(768, 384)} or \
+                m.engine.g.ss.disable_noise or \
+                m.engine.compute_dtype != "bfloat16":
+            raise AssertionError(f"infer CLI wrote {len(pngs_out)} PNGs of "
+                                 f"{sizes}")
+        print(f"[train-options] infer CLI (bf16, SS noise, ss_mapping) from "
+              f"call A's checkpoint directory: 16 PNGs of 768x384, "
+              f"{per_batch} grouped-kernel launches in the batch")
+        del m
+
+        # ---- call B ---------------------------------------------------
+        gb = Generator.from_config(cfg_b)
+        sd = _baseline_state_dict(gb.init(torch.Generator().manual_seed(11),
+                                          device="cpu"))
+        torch.save({"g_ema": sd}, "baseline.ckpt")
+        pipes_b = []
+        zero()
+        with StepTimer() as timer_b:
+            t0 = time.perf_counter()
+            state_b, out_b = _run_train_cli(
+                [b_yaml, "--max-iters", str(FROZEN_ITERS), "--baseline-ckpt",
+                 "baseline.ckpt"], pipes_b, TrainPipeline)
+            wall_b = time.perf_counter() - t0
+        launches_b = counts()["sphere_sample_taps"]
+        if counts() != want(want_b) or state_b.step != FROZEN_ITERS or \
+                "(frozen)" not in out_b:
+            raise AssertionError(f"call B: launches {counts()} (want "
+                                 f"{want_b}), step {state_b.step}")
+        _finite_log_lines(out_b, (4, 8))
+        start = create_train_state(cfg_b, gb, Discriminator.from_config(cfg_b),
+                                   torch.Generator().manual_seed(0),
+                                   device="cuda")
+        loaded, mask = import_torch_baseline_generator(sd, gb, start.params_g)
+        _equal_trees(state_b.params_d, start.params_d, "call B frozen D")
+        n_frozen = moved = 0
+        for (k, a), (_, b), (_, f) in zip(flatten(state_b.params_g),
+                                          flatten(loaded), flatten(mask)):
+            if f:
+                n_frozen += 1
+                if not torch.equal(a, b):
+                    raise AssertionError(f"call B: frozen leaf {k} moved")
+            else:
+                moved += not torch.equal(a, b)
+        if not (n_frozen and moved):
+            raise AssertionError(f"call B: {n_frozen} frozen, {moved} moved")
+        steps_b = timer_b.plain_ms()
+        per_it = np.diff(pipes_b[0].stamps)[2:] * 1e3
+        waits = np.array(pipes_b[0].load_ms)
+        print(f"[train-options] {card_str}: call B (folder, SGD, frozen "
+              f"baseline): {n_frozen} G leaves and the whole D unchanged bit "
+              f"for bit, {moved} G leaves moved; {steps_b.mean():.1f} ms per "
+              f"plain step (median {np.median(steps_b):.1f}, {len(steps_b)} "
+              f"steps) and {per_it.mean():.1f} ms per iteration with data "
+              f"and ticks (median {np.median(per_it):.1f}, {len(per_it)} "
+              f"iterations after the first 2) beside phase 7's bare step "
+              f"{plain_step_ms:.1f} ms; prefetch-queue waits per batch: "
+              f"first 2 {', '.join(f'{w:.2f}' for w in waits[:2])} ms, later "
+              f"mean {waits[2:].mean():.2f} (max {waits[2:].max():.2f}); "
+              f"{wall_b:.1f} s wall; {launches_b} tap-sampler launches")
+    finally:
+        os.chdir(old)
+        shutil.rmtree(tmp)
+    print(f"[train-options] phase 10 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"sphere_sample_taps": launches_a + launches_b,
+            "ext_max_abs_err": ext_err, "render_per_batch": per_batch,
+            "loader_ms": loader_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1391,6 +1833,7 @@ def main():
     train_launches, plain_step_ms = phase_train(card_str)
     train_cli = phase_train_cli(card_str, plain_step_ms)
     phase_train_cli_synthetic(card_str, plain_step_ms, train_cli["plain_ms"])
+    options = phase_train_options(card_str, plain_step_ms)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -1420,9 +1863,11 @@ def main():
             # its float32 body at the planar CLI's shapes vs the plain one
             line[-1]["planar_f32_max_abs_err"] = \
                 cli_launches["planar_f32_max_abs_err"]
-            # its launches rendering the training CLI's checkpoint
+            # its launches rendering the training CLIs' checkpoints
             line[-1]["train_cli_render_launches_per_batch"] = \
                 train_cli["render_per_batch"]
+            line[-1]["train_options_render_launches_per_batch"] = \
+                options["render_per_batch"]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -1435,6 +1880,10 @@ def main():
         # over the training CLI's 30 iterations (8 each) and one call of
         # the image grids (3 forwards of 4 SS layers)
         "train_cli_launches": train_cli["sphere_sample_taps"],
+        # over phase 10's two training CLI calls (12 + 8 iterations)
+        "train_options_launches": options["sphere_sample_taps"],
+        # at the extrapolated grids' shapes (W 45 and 65), f32 and bf16
+        "ext_max_abs_err": options["ext_max_abs_err"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)

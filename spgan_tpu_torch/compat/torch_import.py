@@ -17,7 +17,10 @@ direction:
   structure_synthesizer.implicit_model.conv_stack.{2i}   (sphere block)
       conv.conv.{weight,modulation.*}, sc.{weight,bias}
   structure_synthesizer.implicit_model.conv_stack.{2i+1} (planar block)
-      conv.conv.{weight,modulation.*}, conv.activate.bias
+      conv.conv.{weight,modulation.*}, conv.activate.bias,
+      conv.noise.weight (ss_disable_noise false)
+  structure_synthesizer.implicit_model.global_mapping.{1..8}
+      (ss_mapping)                                   -> ss.mapping[i]
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from spgan_tpu_torch.compat.from_jax import params_from_jax
+from spgan_tpu_torch.models.generator import SS_MAPPING_LAYERS
 
 
 def _t(x) -> np.ndarray:
@@ -87,11 +91,6 @@ def torch_generator_to_jax_layout(state_dict: Dict, g) -> dict:
     blocks = []
     for i in range(g.ss.n_layers):
         sp, pp = f"{stack}.{2 * i}", f"{stack}.{2 * i + 1}"
-        if f"{pp}.conv.noise.weight" in sd:
-            raise NotImplementedError(
-                "the checkpoint's SS planar convs carry noise weights "
-                "(ss_disable_noise=False): SS noise is not ported (ROADMAP "
-                "A8b)")
         blocks.append({
             "sphere": {"conv": _modconv(sd, f"{sp}.conv.conv")},
             "sc": {"weight": _t(sd[f"{sp}.sc.weight"]).transpose(2, 3, 1, 0),
@@ -99,7 +98,16 @@ def torch_generator_to_jax_layout(state_dict: Dict, g) -> dict:
             "planar": {"conv": _modconv(sd, f"{pp}.conv.conv"),
                        "act_bias": _t(sd[f"{pp}.conv.activate.bias"])},
         })
+        if f"{pp}.conv.noise.weight" in sd:      # ss_disable_noise false
+            blocks[-1]["planar"]["noise"] = {
+                "weight": _t(sd[f"{pp}.conv.noise.weight"]).reshape(())}
     params["ss"] = {"blocks": blocks}
+    if g.ss.use_mapping:
+        # Sequential index 0 is the parameterless PixelNorm
+        params["ss"]["mapping"] = [
+            _linear(sd, f"structure_synthesizer.implicit_model."
+                        f"global_mapping.{i + 1}")
+            for i in range(SS_MAPPING_LAYERS)]
     return params
 
 

@@ -38,7 +38,10 @@ class TrainParams:
     mixing: float = 0.9
     lr: float = 0.002
     g_path_start: int = 100000
+    optimizer: str = "adam"          # "adam" | "sgd"
     d_weight: float = 1.0           # D lr ratio
+    lr_sch: Optional[Tuple[int, ...]] = None  # MultiStepLR milestones, gamma 0.5
+    freeze: bool = False            # freeze baseline-loaded G keys + all of D
 
     # architecture (the JAX package's class paths; utils.misc.import_func
     # maps them onto this package)
@@ -77,11 +80,18 @@ class TrainParams:
     coord_num_dir: int = 3
     coord_use_ac: bool = True
     coord_ac_w: float = 1.0
+    coord_use_pd: bool = False
+    coord_pd_w: float = 0.0
     coord_ac_vert_only: bool = True
     coord_ac_hori_only: bool = False
+    coord_ac_categorical: bool = False
+    coord_pd_hori_only: bool = False
+    no_ext: bool = True
 
     # numerics
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    # training steps per loop call (one batch each; 1 == one step a call)
+    steps_per_call: int = 1
 
     @property
     def ss_unfold_size(self) -> int:
@@ -94,10 +104,10 @@ class DataParams:
     num_train: int = 10000
     lmdb_root: str = "infinityGAN-lmdb"
     raw_data_root: str = "data/matterport3d_panorama"
-    # "synthetic" | "npy" | "spr" (the port reads these three) | "folder" |
-    # "lmdb" (not ported, ROADMAP A10)
-    source: str = "synthetic"
+    source: str = "synthetic"  # "synthetic" | "folder" | "npy" | "lmdb" | "spr"
     folder: Optional[str] = None
+    # source "lmdb" only: the key prefix before "-<index>" (e.g. "256");
+    # required when the LMDB stores several resolutions
     lmdb_key_prefix: Optional[str] = None
 
 
@@ -157,17 +167,10 @@ class Config:
 
 # train_params keys of the JAX package with no field here: the port runs
 # only their JAX defaults (spgan_tpu/config.py), and a yaml that sets
-# another value raises rather than train or render a different model
+# another value raises rather than train or render a different model.
+# pallas_train_sampler chooses between a Pallas kernel and XLA's gathers
+# on a TPU; the port always runs its tap-sampler kernel on the card.
 UNPORTED_TRAIN_DEFAULTS: Dict[str, Any] = {
-    "optimizer": "adam",
-    "lr_sch": None,
-    "freeze": False,
-    "coord_use_pd": False,
-    "coord_pd_w": 0.0,
-    "coord_ac_categorical": False,
-    "coord_pd_hori_only": False,
-    "no_ext": True,
-    "steps_per_call": 1,
     "pallas_train_sampler": "auto",
 }
 
@@ -214,8 +217,8 @@ def load_config(model_yaml: Optional[str] = None,
             v = unknown.pop(k)
             if v != UNPORTED_TRAIN_DEFAULTS[k]:
                 raise NotImplementedError(
-                    f"train_params.{k} = {v!r} is not ported (ROADMAP A8b); "
-                    f"the port runs only the JAX default "
+                    f"train_params.{k} = {v!r} chooses a TPU code path; the "
+                    f"port runs only the JAX default "
                     f"{UNPORTED_TRAIN_DEFAULTS[k]!r}")
         if unknown:
             ignored["train_params (unrecognized)"] = unknown

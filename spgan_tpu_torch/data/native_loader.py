@@ -10,7 +10,9 @@ package's loader).
 
 The library is built with g++ (the JAX package's flags, so both packages
 make the same batches on one machine) into ``spgan_tpu_torch/_build/``,
-keyed by a hash of the source and the flags, at first use.  A build that
+keyed by a hash of the source and the flags, at first use; ``build``
+serves the port's other C++ source (the PNG unfilter, utils/png.py)
+the same way.  A build that
 fails raises: nothing falls back to a Python reader, whose resize differs.
 """
 from __future__ import annotations
@@ -34,32 +36,32 @@ MAGIC = 0x31525053  # "SPR1"
 HEADER_BYTES = 24
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
+def library_path(src: Path = SRC) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join((CXX,) + CXX_FLAGS).encode())
-    return BUILD_DIR / f"libspgan_loader_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """The loader's library, compiled unless one exists for the current
-    source and flags; raises RuntimeError when the compiler fails or is
+def build(src: Path = SRC, what: str = "the native loader") -> Path:
+    """The library of the C++ source `src` (default the loader's),
+    compiled with g++ unless one exists for the current source and flags;
+    raises RuntimeError, naming `what`, when the compiler fails or is
     missing."""
-    out = library_path()
+    out = library_path(src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SRC), "-o", tmp],
+        proc = subprocess.run([CXX, *CXX_FLAGS, str(src), "-o", tmp],
                               capture_output=True, text=True)
     except OSError as e:
         os.unlink(tmp)
-        raise RuntimeError(f"cannot run {CXX!r} to build the native "
-                           f"loader: {e}") from e
+        raise RuntimeError(f"cannot run {CXX!r} to build {what}: {e}") from e
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"{CXX} failed to build {SRC} (exit "
+        raise RuntimeError(f"{CXX} failed to build {src} (exit "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders agree
     return out

@@ -2,9 +2,11 @@
 (counterpart of spgan_tpu/data/pipeline.py).
 
 Sources (``data_params.source``): "synthetic" (smooth noise panoramas, for
-smoke runs), "npy" (a packed (N, H, W, 3) uint8 array, memory-mapped) and
-"spr" (an SPR1 record file, data/native_loader.py).  "folder" and "lmdb"
-are not ported (ROADMAP A10).
+smoke runs), "folder" (a directory of image files), "npy" (a packed (N,
+H, W, 3) uint8 array, memory-mapped), "lmdb" (a reference-prepared LMDB,
+read by the stdlib parser data/lmdb_read.py) and "spr" (an SPR1 record
+file, data/native_loader.py).  The folder and lmdb sources decode PNGs
+in-tree (utils/png.py) and other formats through PIL, when it imports.
 
 ``make_train_pipeline`` gives an .spr file to the native C++ loader, as
 the JAX package does, and every other source to ``TrainPipeline``: a
@@ -18,16 +20,20 @@ Batches are numpy: {"patch": (B,P,P,3) float32 in [-1,1], "ac_coords":
 """
 from __future__ import annotations
 
+import os
 import queue
+import re
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Tuple
+from glob import glob
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.data.native_loader import NativeRecordLoader, read_records
 from spgan_tpu_torch.data.resize import resize_lanczos4_u8, resize_linear_u8
+from spgan_tpu_torch.utils.png import decode_image
 
 # batches the background thread of TrainPipeline makes ahead
 PREFETCH = 4
@@ -91,6 +97,64 @@ class SyntheticPanoramas:
         return resize_linear_u8(self.base[idx % self.n], self.h, self.w)
 
 
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _folder_source(folder: str):
+    """Every .png/.jpg/.jpeg/.webp file of `folder`, in sorted order."""
+    paths = sorted(
+        p for p in glob(os.path.join(folder, "*"))
+        if p.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
+    if not paths:
+        raise ValueError(f"no images found in {folder}")
+    return len(paths), lambda idx: decode_image(_read(paths[idx % len(paths)]))
+
+
+def _lmdb_source(folder: str, key_prefix: Optional[str] = None):
+    """A reference-prepared LMDB (keys f"{size}-{idx}"), read in-process
+    by data/lmdb_read.py.  An LMDB that stores several resolutions keeps
+    each image once per size under its own prefix: training on all of them
+    would repeat and rescale the dataset, so with more than one prefix
+    `key_prefix` must pick one."""
+    from spgan_tpu_torch.data import lmdb_read
+
+    env = lmdb_read.open(folder, readonly=True, lock=False, readahead=False,
+                         meminit=False)
+    key_re = re.compile(rb"^(.*)-(\d{5,8})$")
+    by_prefix: Dict[bytes, list] = {}
+    with env.begin(write=False) as txn:
+        # keys only: the stored images are not read here
+        for k in txn.cursor().iternext(values=False):
+            m = key_re.match(k)
+            if m:
+                by_prefix.setdefault(m.group(1), []).append(k)
+    if not by_prefix:
+        raise ValueError(f"no image keys found in LMDB {folder}")
+    if key_prefix is not None:
+        enc = key_prefix.encode()
+        if enc not in by_prefix:
+            raise ValueError(
+                f"lmdb_key_prefix {key_prefix!r} not in LMDB {folder}; "
+                f"present: {sorted(p.decode() for p in by_prefix)}")
+        keys = by_prefix[enc]
+    elif len(by_prefix) > 1:
+        raise ValueError(
+            f"LMDB {folder} stores multiple resolutions/prefixes "
+            f"{sorted(p.decode() for p in by_prefix)}; training on all "
+            "would repeat each image once per stored size; set "
+            "data_params.lmdb_key_prefix to pick one")
+    else:
+        (keys,) = by_prefix.values()
+
+    def load(idx):
+        with env.begin(write=False) as txn:
+            return decode_image(txn.get(keys[idx % len(keys)]))
+
+    return len(keys), load
+
+
 def make_data_source(cfg: Config) -> Tuple[int, Callable[[int], np.ndarray]]:
     """(number of images, load(idx) -> (H, W, 3) uint8) of
     cfg.data_params.source."""
@@ -99,16 +163,16 @@ def make_data_source(cfg: Config) -> Tuple[int, Callable[[int], np.ndarray]]:
         src = SyntheticPanoramas(cfg.train_params.data_size,
                                  n=max(64, min(dp.num_train, 512)))
         return len(src), src.__getitem__
+    if dp.source == "folder":
+        return _folder_source(dp.folder)
+    if dp.source == "lmdb":
+        return _lmdb_source(dp.folder or dp.lmdb_root, dp.lmdb_key_prefix)
     if dp.source in ("npy", "spr"):
         arr = (np.load(dp.folder, mmap_mode="r") if dp.source == "npy"
                else read_records(dp.folder))
         return arr.shape[0], lambda idx: np.asarray(arr[idx % arr.shape[0]])
-    if dp.source in ("folder", "lmdb"):
-        raise NotImplementedError(
-            f"data_params.source {dp.source!r} is not ported (ROADMAP A10); "
-            "use npy, spr or synthetic")
     raise ValueError(f"unknown data source {dp.source!r}; the port reads "
-                     "synthetic | npy | spr")
+                     "synthetic | folder | npy | lmdb | spr")
 
 
 class TrainPipeline:

@@ -1,6 +1,9 @@
 """Spherical coordinate fields and crop descriptors (counterpart of
-spgan_tpu/geometry/coords.py: the test field and the training crops with
-their shared jitter, ac labels and crop descriptors; num_dir 3)."""
+spgan_tpu/geometry/coords.py): the input encodings of every coord_num_dir,
+the test field, the training crops with their shared jitter, ac labels
+and crop descriptors, and the extrapolated training grids of windows
+larger than the field.  Training runs num_dir 3 only (perturb_ranges
+raises otherwise, as in the JAX package); num_dir 1 serves inference."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -39,15 +42,43 @@ class CoordsPartial:
 
 
 def encode_coords(coords: torch.Tensor, num_dir: int = 3) -> torch.Tensor:
-    """Raw index coords -> network input encoding, channel-last:
-    (tanh(x), cos(pi*y), sin(pi*y))."""
-    if num_dir != 3:
-        raise NotImplementedError(f"coord_num_dir={num_dir}")
-    return torch.stack([
-        torch.tanh(coords[..., 0]),
-        torch.cos(coords[..., 1] * np.pi),
-        torch.sin(coords[..., 2] * np.pi),
-    ], dim=-1)
+    """Raw index coords -> network input encoding, channel-last.
+
+    num_dir 3: (tanh(x), cos(pi*y), sin(pi*y)); 5 adds cos(2 pi y2) and
+    cos(3 pi y3); 1: tanh; 2: the identity; 4: cos/sin pairs; 21: tanh(x)
+    and cos/sin(y * pi * 2^i) for i in 0..9."""
+    if num_dir == 3:
+        return torch.stack([
+            torch.tanh(coords[..., 0]),
+            torch.cos(coords[..., 1] * np.pi),
+            torch.sin(coords[..., 2] * np.pi),
+        ], dim=-1)
+    if num_dir == 5:
+        return torch.stack([
+            torch.tanh(coords[..., 0]),
+            torch.cos(coords[..., 1] * np.pi),
+            torch.sin(coords[..., 2] * np.pi),
+            torch.cos(coords[..., 3] * np.pi * 2),
+            torch.cos(coords[..., 4] * np.pi * 3),
+        ], dim=-1)
+    if num_dir == 1:
+        return torch.tanh(coords)
+    if num_dir == 2:
+        return coords
+    if num_dir == 4:
+        return torch.stack([
+            torch.cos(coords[..., 0] * np.pi),
+            torch.sin(coords[..., 1] * np.pi),
+            torch.cos(coords[..., 2] * np.pi),
+            torch.sin(coords[..., 3] * np.pi),
+        ], dim=-1)
+    if num_dir == 21:
+        parts = [torch.tanh(coords[..., 0])]
+        for i in range(10):
+            parts.append(torch.cos(coords[..., i * 2 + 1] * np.pi * 2 ** i))
+            parts.append(torch.sin(coords[..., i * 2 + 2] * np.pi * 2 ** i))
+        return torch.stack(parts, dim=-1)
+    raise NotImplementedError(f"coord_num_dir={num_dir}")
 
 
 @dataclass(frozen=True)
@@ -91,19 +122,24 @@ class CoordGrid:
         y = y * 2.0 - 1.0
         xx = np.repeat(x[:, None], w, axis=1)
         yy = np.repeat(y[None, :], h, axis=0)
-        if self.num_dir != 3:
+        if self.num_dir == 3:
+            grid = np.stack([xx, yy, yy], axis=-1)
+        elif self.num_dir == 1:
+            grid = xx[..., None]
+        else:
             raise NotImplementedError(f"num_dir={self.num_dir}")
-        return np.stack([xx, yy, yy], axis=-1).astype(np.float32)
+        return grid.astype(np.float32)
 
     def test_field(self, height: int, width: int) -> np.ndarray:
         """Deterministic coordinate field over the full inference latent."""
         return self.base_grid(height=height, width=width)
 
     def perturb_ranges(self) -> np.ndarray:
-        """Half-pixel jitter amplitude per channel."""
+        """Half-pixel jitter amplitude per channel (num_dir 3 only)."""
         g = self.base_grid()
         if self.num_dir != 3:
-            raise NotImplementedError(f"num_dir={self.num_dir}")
+            raise NotImplementedError(f"perturb_ranges: num_dir="
+                                      f"{self.num_dir}")
         return np.array([abs(g[0, 0, 0] - g[1, 0, 0]) / 2,
                          abs(g[0, 0, 1] - g[0, 1, 1]) / 2,
                          abs(g[0, 0, 2] - g[0, 1, 2]) / 2], np.float32)
@@ -118,12 +154,12 @@ class CoordGrid:
                              generator=gen, device=dev)
         y_st = torch.randint(0, self.size_y, (batch,), generator=gen,
                              device=dev)
-        pr = torch.as_tensor(self.perturb_ranges(), device=dev)
         if self.continuous:
+            pr = torch.as_tensor(self.perturb_ranges(), device=dev)
             u = torch.rand((pr.shape[0],), generator=gen, device=dev)
             jitter = (u * 2.0 - 1.0) * pr
         else:
-            jitter = torch.zeros_like(pr)
+            jitter = torch.zeros((self.num_dir,), device=dev)
         return x_st, y_st, jitter
 
     def training_crops(self, x_st: torch.Tensor, y_st: torch.Tensor,
@@ -146,6 +182,40 @@ class CoordGrid:
         """Random 35x35 crops of the constant field with wrap + shared
         jitter: (coords (B,35,35,C) raw, ac_coords (B,C), CoordsPartial)."""
         return self.training_crops(*self.draw_training(gen, batch))
+
+    def training_extrap_crops(self, x_st: torch.Tensor, y_st: torch.Tensor,
+                              jitter: torch.Tensor, size: int):
+        """Training coords of `size` x `size` windows, larger than the
+        constant field: fresh grids extrapolated from the crop origins
+        (x_st, y_st) instead of slices of the field, plus the shared
+        jitter, in float32 as the JAX package computes them.  Returns
+        (coords (B,size,size,3), ac_coords (B,3), CoordsPartial) with no
+        crop marked circular."""
+        dev = x_st.device
+        ar = torch.arange(size, device=dev, dtype=torch.float32)
+        x = (ar + x_st.float()[:, None]) / (self.size_x - 1)      # (B,size)
+        y = (ar + y_st.float()[:, None]) / (self.size_y - 1)
+        x = x - (x[:, -1:] - 1.0) / 2.0
+        x = (x * 2.0 - 1.0) * self.vert_cut_pt
+        y = y * 2.0 - 1.0
+        xx = x[:, :, None].expand(-1, size, size)
+        yy = y[:, None, :].expand(-1, size, size)
+        coords = torch.stack([xx, yy, yy], dim=-1) + jitter.float()
+        cp = CoordsPartial(
+            p_x_st=x_st / self.size_x,
+            p_x_ed=(x_st + size - 1) / self.size_x,
+            p_y_st=y_st / self.size_y,
+            p_y_ed=(y_st + size - 1) / self.size_y,
+            circular=torch.zeros(x_st.shape, device=dev),
+            x_total=self.size_x, y_total=self.size_y, grid_partial=0.8)
+        return coords, self._ac_coords(x_st, y_st), cp
+
+    def sample_training_extrap(self, gen: torch.Generator, batch: int,
+                               size: int):
+        """Random extrapolated training windows of `size` (the crop origins
+        and jitter are drawn as sample_training draws them)."""
+        return self.training_extrap_crops(*self.draw_training(gen, batch),
+                                          size)
 
     def _ac_coords(self, x_st, y_st):
         nx = (x_st / (self.vert_sample_size - 1)) * 2.0 - 1.0

@@ -12,8 +12,14 @@ engine runs and the sample-tables branch training runs).
   (ops/kernels/sphere_sample.py), the coordinate taps are re-encoded, and
   one einsum over (tap, channel) applies the weight, through which weight
   and style gradients flow exactly.
+* SphereStyledConv, tables_mode "grid": latent and coordinate channels
+  through the straight-through bilinear 3x3 sampler on the per-pixel
+  patch grid, then a stride-3 conv: the JAX package's path without
+  tables, exact where the row-offset tables are not (the extrapolated
+  windows of the training image grids).
 * SphereSkipConv: the TS skip-path sphere conv (RGB 3->3) through the tap
-  conv (ops/grid_sample.st_tap_conv), identity init, LeakyReLU(0.01).
+  conv (ops/grid_sample.st_tap_conv), or on the patch grid when it is
+  given no tables, identity init, LeakyReLU(0.01).
 """
 from __future__ import annotations
 
@@ -71,8 +77,9 @@ class SphereStyledConv:
         style: (B,style_dim).  grid (G,3H,3W,2) and tables (dict of
         (G,H,K2)) describe G patches, each shared by B//G consecutive
         samples when groups == G > 0; with groups == 0 there is one per
-        sample.  tables_mode "sample" takes per-sample tables and no grid.
-        Output (B,H,W,out_ch), size preserving."""
+        sample.  tables_mode "sample" takes per-sample tables and no grid;
+        "grid" a grid and no tables.  Output (B,H,W,out_ch), size
+        preserving."""
         k = self.kernel_size
         ld = self.local_dim
         spec = self.conv_spec()
@@ -92,8 +99,15 @@ class SphereStyledConv:
             taps = taps * s[:, None, None, None, :]
             y = torch.einsum("bthwc,tco->bhwo", taps, w9)
             return y * demod[:, None, None, :]
+        if tables_mode == "grid":
+            both = torch.cat([x, coords.to(x.dtype)], dim=-1)
+            sampled = st_grid_sample_3x3(both, grid, groups)  # (B,3H,3W,in)
+            s_c = encode_coords(sampled[..., ld:], self.coord_dim)
+            sampled = torch.cat([sampled[..., :ld], s_c.to(x.dtype)], dim=-1)
+            y = conv2d_nhwc(sampled * s[:, None, None, :], wt, stride=k)
+            return y * demod[:, None, None, :]
         if tables_mode != "fused":
-            raise ValueError(f"tables_mode must be fused|sample, got "
+            raise ValueError(f"tables_mode must be fused|sample|grid, got "
                              f"{tables_mode!r}")
         xs_main = x * s[:, None, None, :ld]
         w_main = w9[:, :ld].contiguous()
@@ -129,9 +143,17 @@ class SphereSkipConv:
         b = torch.rand((self.out_ch,), generator=gen) * (2 * bound) - bound
         return {"weight": w, "bias": b}
 
-    def apply(self, params: dict, x: torch.Tensor, tables: dict,
-              groups: int = 0, margin: int = 6) -> torch.Tensor:
+    def apply(self, params: dict, x: torch.Tensor, tables: Optional[dict],
+              groups: int = 0, margin: int = 6,
+              grid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tables (with their column margin), or with tables None the
+        (B,3H,3W,2) patch grid."""
         wt = params["weight"].to(x.dtype) * self.scale
-        y = st_tap_conv(x, tables, _taps(wt), margin=margin, groups=groups)
+        if tables is None:
+            y = conv2d_nhwc(st_grid_sample_3x3(x, grid, groups), wt,
+                            stride=self.kernel_size)
+        else:
+            y = st_tap_conv(x, tables, _taps(wt), margin=margin,
+                            groups=groups)
         y = y + params["bias"].to(x.dtype)
         return F.leaky_relu(y, 0.01)

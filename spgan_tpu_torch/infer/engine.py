@@ -3,7 +3,11 @@ spgan_tpu/infer/engine.py: the single-device engine).
 
 One `generate` call
 
-  1. samples the latent and noise fields (or takes them injected),
+  1. samples the latent and noise fields (or takes them injected); with
+     ss_disable_noise False, one map per SS planar conv and sample
+     follows the TS noise fields, shared by every patch of a panorama
+     (the reference's test-time noise cache gives every patch the same
+     per-sample map, since the SS sizes never change),
   2. pads the circular fields once (close-loop), so every per-patch read
      is a slice,
   3. runs the generator over the lattice in folded batches of
@@ -109,7 +113,8 @@ class PanoramaEngine:
     # ----------------------------------------------------------------
     def sample_fields(self, gen: torch.Generator):
         """Latent + noise fields for one batch of panoramas, drawn from
-        `gen` (a generator on the engine's device)."""
+        `gen` (a generator on the engine's device).  With SS noise, its
+        (B, s, s, 1) maps are appended to the TS noise fields."""
         plan = self.plan
         kw = dict(generator=gen, device=self.device)
         gl = torch.randn((self.batch, 2, self.g.ts.global_dim), **kw)
@@ -118,14 +123,18 @@ class PanoramaEngine:
                                self.g.ts.local_dim), **kw)
         noises = [torch.randn((self.batch, h, w, 1), **kw)
                   for h, w in plan.noise_sizes]
+        if not self.g.ss.disable_noise:
+            noises += [torch.randn((self.batch, s, s, 1), **kw)
+                       for s in self.g.ss.noise_sizes(plan.window)]
         return gl, z_field, noises
 
     # ----------------------------------------------------------------
     def render_chunk(self, params, styles, gz, z_pad, coords_pad, noises_pad,
-                     ci: int) -> torch.Tensor:
+                     ci: int, ss_maps=()) -> torch.Tensor:
         """Render rendered-positions [ci*chunk, (ci+1)*chunk) x `batch`
         panoramas in ONE folded generator call (chunk-major fold: sample
-        q*batch + b is panorama b at the q-th position).  Returns
+        q*batch + b is panorama b at the q-th position); ss_maps: the SS
+        noise maps (B, s, s, 1), the same at every position.  Returns
         (chunk, batch, patch, patch, 3) in the compute dtype."""
         plan = self.plan
         g = self.g
@@ -152,8 +161,11 @@ class PanoramaEngine:
                        for t in self._skip_tables]
         gz_t = gz.repeat(chunk, 1).to(cdt)
         styles_t = styles.repeat(chunk, 1, 1).to(cdt)
+        # the chunk-major fold order of zw: position q's samples take the
+        # B maps in order
+        ss_noises = [m.repeat(chunk, 1, 1, 1).to(cdt) for m in ss_maps]
         structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
-                               groups=chunk)
+                               groups=chunk, noises=ss_noises or None)
         img = g.ts.synthesize(params["ts"], structure, styles_t, layer_noises,
                               skip_tables, self._skip_margins, groups=chunk)
         patch_sz = plan.geom.outfeat_sizes[-1]
@@ -163,6 +175,8 @@ class PanoramaEngine:
     def _render(self, params, gl, z_field, noises) -> torch.Tensor:
         """(len(_render_idx), B, patch, patch, 3) float32 patches."""
         plan = self.plan
+        n_ts = len(plan.noise_sizes)
+        ss_maps, noises = noises[n_ts:], noises[:n_ts]
         if plan.close_loop:
             win = plan.window
             z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
@@ -177,7 +191,7 @@ class PanoramaEngine:
         n_chunks = len(self._render_idx) // self.patch_chunk
         return torch.cat([
             self.render_chunk(params, styles, gz, z_pad, coords_pad,
-                              noises_pad, ci).float()
+                              noises_pad, ci, ss_maps).float()
             for ci in range(n_chunks)])
 
     def _scatter(self, patches: torch.Tensor,

@@ -8,16 +8,25 @@
     final 3x3 conv, the NCHW flatten of the reference (checkpoint order),
     two linears -> d_patch and, with coord_use_ac, two linears ->
     ac_coords_pred.
+  * the projection head (coord_use_pd): at training time the ac label (its
+    last coord_proj_dim entries) goes through two linears and
+    coord_pd_w * <label_proj, sum_hw(feature entering the last ResBlock)>
+    is added to d_patch.
+  * the categorical AC head (coord_ac_categorical) widens the coord
+    head's output to num_dir * vert_sample_size.  The reference's
+    categorical loss branch is unreachable (its loss returns on
+    vert_only first, and categorical requires vert_only), so only the
+    head's shape changes.
 
 stddev_group: _smallest_divisor_at_least(batch=16, 4) returns 16 (the
 search range(4, 4) is empty), so the statistic spans the whole batch, as
-in the reference.  The pd head and the categorical AC head are not ported.
+in the reference.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -111,6 +120,11 @@ class Discriminator:
     coord_num_dir: int = 3
     linear_ch: int = 512
     extra_multiplier: float = 1.0
+    use_coord_pd: bool = False
+    coord_pd_w: float = 0.0
+    coord_pd_hori_only: bool = False
+    coord_ac_categorical: bool = False
+    coord_vert_sample_size: int = 10
 
     @classmethod
     def from_config(cls, cfg: Config) -> "Discriminator":
@@ -121,7 +135,23 @@ class Discriminator:
                    extra_multiplier=tp.d_extra_multiplier,
                    batch_size=tp.batch_size,
                    use_coord_ac=tp.coord_use_ac,
-                   coord_num_dir=tp.coord_num_dir)
+                   coord_num_dir=tp.coord_num_dir,
+                   use_coord_pd=tp.coord_use_pd,
+                   coord_pd_w=tp.coord_pd_w,
+                   coord_pd_hori_only=tp.coord_pd_hori_only,
+                   coord_ac_categorical=tp.coord_ac_categorical,
+                   coord_vert_sample_size=tp.coord_vert_sample_size)
+
+    @property
+    def coord_proj_dim(self) -> int:
+        return (self.coord_num_dir - 1 if self.coord_pd_hori_only
+                else self.coord_num_dir)
+
+    @property
+    def ac_out_dim(self) -> int:
+        if self.coord_ac_categorical:
+            return self.coord_num_dir * self.coord_vert_sample_size
+        return self.coord_num_dir
 
     def channels(self) -> dict:
         cm = self.channel_multiplier
@@ -156,11 +186,15 @@ class Discriminator:
         return stem, blocks, final_conv, self.linear_ch * size * size
 
     def _heads(self, flat: int):
+        """The d_patch, coord-AC and projection heads' linear pairs."""
         lc = self.linear_ch
         return ((EqualLinear(flat, lc, activation="fused_lrelu"),
                  EqualLinear(lc, 1)),
                 (EqualLinear(flat, lc, activation="fused_lrelu"),
-                 EqualLinear(lc, self.coord_num_dir)))
+                 EqualLinear(lc, self.ac_out_dim)),
+                (EqualLinear(self.coord_proj_dim, lc,
+                             activation="fused_lrelu"),
+                 EqualLinear(lc, lc)))
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Random parameters from `gen` (a CPU generator), on `device`
@@ -169,40 +203,57 @@ class Discriminator:
         from spgan_tpu_torch.models.generator import _tree_to
 
         stem, blocks, final_conv, flat = self.plan()
-        (l1, l2), (c1, c2) = self._heads(flat)
+        (l1, l2), (c1, c2), (p1, p2) = self._heads(flat)
         params = {"stem": stem.init(gen),
                   "blocks": [b.init(gen) for b in blocks],
                   "final_conv": final_conv.init(gen),
                   "final_linear": [l1.init(gen), l2.init(gen)]}
         if self.use_coord_ac:
             params["coord_linear"] = [c1.init(gen), c2.init(gen)]
+        if self.use_coord_pd:
+            params["coord_proj"] = [p1.init(gen), p2.init(gen)]
         return _tree_to(params, resolve(device))
 
     def r1_graph_mask(self, params: dict) -> dict:
         """Per-leaf torch-Adam activity for the R1 phase: every parameter of
         the d_patch graph is stepped (with a zero gradient where it has
         none, as the reference's `+ 0 * d_patch[0]` makes torch do), the
-        coord-AC head (outside that graph) is skipped."""
+        coord-AC head (outside that graph) is skipped.  The projection
+        head is part of d_patch at training time, so it is stepped."""
         return {k: tree_map(lambda _: k != "coord_linear", v)
                 for k, v in params.items()}
 
-    def apply(self, params: dict, img: torch.Tensor
-              ) -> Dict[str, torch.Tensor]:
-        """img: (B, H, W, 3) in [-1, 1].  Returns {"d_patch": (B,1)} and,
-        with coord_use_ac, "ac_coords_pred": (B, num_dir)."""
+    def apply(self, params: dict, img: torch.Tensor,
+              ac_coords: Optional[torch.Tensor] = None,
+              train: bool = False) -> Dict[str, torch.Tensor]:
+        """img: (B, H, W, 3) in [-1, 1]; ac_coords: (B, num_dir) labels,
+        required at training time with coord_use_pd.  Returns {"d_patch":
+        (B,1)} and, with coord_use_ac, "ac_coords_pred": (B, ac_out_dim)."""
         stem, blocks, final_conv, flat = self.plan()
         h = stem(params["stem"], img)
+        last_feat = None
         for b, p in zip(blocks, params["blocks"]):
+            last_feat = h          # the feature entering the last ResBlock
             h = b(p, h)
         h = minibatch_stddev(h, self.stddev_group)
         h = final_conv(params["final_conv"], h)
         # the reference's NCHW flatten order
         h = h.permute(0, 3, 1, 2).reshape(h.shape[0], -1)
-        (l1, l2), (c1, c2) = self._heads(flat)
+        (l1, l2), (c1, c2), (p1, p2) = self._heads(flat)
         out = {"d_patch": l2.apply(params["final_linear"][1],
                                    l1.apply(params["final_linear"][0], h))}
         if self.use_coord_ac:
             out["ac_coords_pred"] = c2.apply(
                 params["coord_linear"][1],
                 c1.apply(params["coord_linear"][0], h))
+        if self.use_coord_pd and train:
+            if ac_coords is None:
+                raise ValueError("coord_use_pd needs the ac_coords labels "
+                                 "at training time")
+            label = ac_coords[:, -self.coord_proj_dim:]
+            label_proj = p2.apply(params["coord_proj"][1],
+                                  p1.apply(params["coord_proj"][0], label))
+            feat_proj = last_feat.sum(dim=(1, 2))               # (B, C)
+            proj_pred = (label_proj * feat_proj).sum(dim=1, keepdim=True)
+            out["d_patch"] = out["d_patch"] + proj_pred * self.coord_pd_w
         return out

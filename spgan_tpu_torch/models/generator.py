@@ -2,7 +2,10 @@
 synthesizer (no-padding StyleGAN2 chain with spherical skip convs).
 Counterpart of spgan_tpu/models/generator.py: the inference forward and
 the training forward (sample-mode sphere convs, style mixing, the
-mode-seeking diversity loss).
+mode-seeking diversity loss), with the SS options of the reference: noise
+in the SS planar convs (ss_disable_noise false; the sphere convs never
+take noise) and ss_mapping, an 8-layer mapping MLP on the global latent
+before the SS modulation.
 
 Parameters are nested dicts/lists of float32 tensors with the JAX
 package's tree structure (so ``compat/from_jax.py`` carries weights across
@@ -78,6 +81,10 @@ def tables_to(tables: dict, device) -> dict:
     return {k: v.to(device).contiguous() for k, v in tables.items()}
 
 
+# layers of the ss_mapping MLP (reference: n_mlp 8)
+SS_MAPPING_LAYERS = 8
+
+
 # ----------------------------------------------------------------------
 # Structure synthesizer
 # ----------------------------------------------------------------------
@@ -90,6 +97,12 @@ class StructureSynthesizer:
     n_layers: int = 4
     unfold_radius: int = 3
     use_angular_div: bool = True
+    # ss_disable_noise: when False the planar styled convs inject a noise
+    # map each (the sphere convs never do)
+    disable_noise: bool = True
+    # ss_mapping: an 8-layer PixelNorm + EqualLinear(lr_mul 0.01,
+    # fused_lrelu) MLP on the global latent before the SS modulation
+    use_mapping: bool = False
     coord_grid: CoordGrid = dfield(default_factory=CoordGrid)
 
     @property
@@ -108,20 +121,43 @@ class StructureSynthesizer:
                 in_ch=self.local_dim + self.coord_dim, out_ch=self.local_dim,
                 kernel_size=k, style_dim=self.global_dim, demodulate=True,
                 no_zero_pad=True),
-            disable_noise=True)
+            disable_noise=self.disable_noise)
+
+    def mapping_spec(self) -> EqualLinear:
+        return EqualLinear(self.global_dim, self.global_dim, lr_mul=0.01,
+                           activation="fused_lrelu")
 
     def init(self, gen: torch.Generator) -> dict:
-        return {"blocks": [
+        params = {"blocks": [
             {"sphere": self.sphere_spec().init(gen),
              "sc": _plain_conv1x1_init(gen, self.local_dim, self.local_dim),
              "planar": self.planar_spec().init(gen)}
             for _ in range(self.n_layers)]}
+        if self.use_mapping:
+            params["mapping"] = [self.mapping_spec().init(gen)
+                                 for _ in range(SS_MAPPING_LAYERS)]
+        return params
+
+    def map_global(self, params: dict, global_z: torch.Tensor) -> torch.Tensor:
+        """The ss_mapping MLP (the identity when it is off)."""
+        if not self.use_mapping:
+            return global_z
+        h = pixel_norm(global_z)
+        spec = self.mapping_spec()
+        for p in params["mapping"]:
+            h = spec.apply(p, h)
+        return h
 
     def layer_sizes(self, in_size: int) -> List[int]:
         """Feature size at each sphere conv (sphere convs preserve size, the
         k=7 planar convs shrink by 2*unfold_radius)."""
         return [in_size - 2 * self.unfold_radius * i
                 for i in range(self.n_layers)]
+
+    def noise_sizes(self, in_size: int) -> List[int]:
+        """Size of each planar conv's output, where its noise map applies:
+        the shapes of the SS noise maps."""
+        return [s - 2 * self.unfold_radius for s in self.layer_sizes(in_size)]
 
     def train_tables(self, cp: CoordsPartial, in_size: int) -> List[dict]:
         """Per-sample offset tables for every sphere layer, on cp's device:
@@ -133,27 +169,33 @@ class StructureSynthesizer:
     def apply(self, params: dict, global_z: torch.Tensor,
               local_latent: torch.Tensor, coords: torch.Tensor,
               grids: Optional[Sequence[torch.Tensor]],
-              tables_list: Sequence[dict], groups: int = 0,
-              tables_mode: str = "fused") -> torch.Tensor:
-        """global_z: (B, global_dim) raw z (the shipped ss_mapping is off);
+              tables_list: Optional[Sequence[dict]], groups: int = 0,
+              tables_mode: str = "fused",
+              noises: Optional[Sequence[torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """global_z: (B, global_dim) raw z (mapped first with ss_mapping);
         local_latent: (B,S,S,local_dim); coords: (B,S,S,coord_dim) raw
         indices; grids/tables_list: per sphere layer, per patch (shared by
         B//groups samples when groups > 0).  tables_mode "sample" (training)
-        takes per-sample tables and no grids."""
+        takes per-sample tables and no grids, "grid" grids and no tables.
+        noises: one (B,h,w,1) map per planar conv (noise_sizes), used when
+        ss_disable_noise is False; None adds no noise."""
         h = local_latent
+        global_z = self.map_global(params, global_z)
         sphere = self.sphere_spec()
         planar = self.planar_spec()
         for i, blk in enumerate(params["blocks"]):
             c = _center_crop(coords, h.shape[1], h.shape[2])
             y = sphere.apply(blk["sphere"], h, global_z, c,
                              None if grids is None else grids[i],
-                             tables_list[i], groups=groups,
-                             tables_mode=tables_mode)
+                             None if tables_list is None else tables_list[i],
+                             groups=groups, tables_mode=tables_mode)
             y = F.leaky_relu(y, 0.01)
             h = y + _plain_conv1x1(blk["sc"], h)
             c = _center_crop(coords, h.shape[1], h.shape[2])
             enc = encode_coords(c, self.coord_dim).to(h.dtype)
-            h = planar.apply(blk["planar"], torch.cat([h, enc], -1), global_z)
+            h = planar.apply(blk["planar"], torch.cat([h, enc], -1), global_z,
+                             noise=None if noises is None else noises[i])
         return h
 
     def diversity_z_loss(self, local_latent: torch.Tensor,
@@ -233,12 +275,13 @@ class TextureSynthesizer:
         return derive_stitch_geometry(self.conv_specs_spatial(),
                                       self.ts_input_size)
 
-    def skip_sizes(self) -> List[int]:
+    def skip_sizes(self, in_size: Optional[int] = None) -> List[int]:
         """Input spatial size of each sphere skip conv (= the previous
-        ToRGB's output size)."""
+        ToRGB's output size) for a structure latent of `in_size` (default
+        ts_input_size)."""
         _, _, i2j = self.plan()
         out_sizes = out_size_chain(self.conv_specs_spatial(),
-                                   self.ts_input_size)
+                                   in_size or self.ts_input_size)
         return [int(out_sizes[src - 2]) for src in sorted(i2j)]
 
     def mapping_spec(self) -> EqualLinear:
@@ -286,11 +329,14 @@ class TextureSynthesizer:
     def synthesize(self, params: dict, structure_latent: torch.Tensor,
                    styles: torch.Tensor,
                    noises: Sequence[Optional[torch.Tensor]],
-                   skip_tables: Sequence[dict], skip_margins: Sequence[int],
-                   groups: int = 0) -> torch.Tensor:
+                   skip_tables: Optional[Sequence[dict]],
+                   skip_margins: Optional[Sequence[int]], groups: int = 0,
+                   skip_grids: Optional[Sequence[torch.Tensor]] = None
+                   ) -> torch.Tensor:
         """structure_latent: (B,11,11,local_dim); styles: (B, n_latent, D);
         noises: one map per conv; skip_tables: per sphere skip conv, per
-        patch (shared by B//groups samples when groups > 0).
+        patch (shared by B//groups samples when groups > 0); or, with
+        skip_grids (B,3h,3w,2) per skip conv, no tables.
 
         The skip graph: conv i runs, then when i == src of the pending
         to_rgb, the sphere skip conv (for i in i2j) transforms the running
@@ -308,9 +354,13 @@ class TextureSynthesizer:
             if i == t["src"]:
                 if i in i2j:
                     j = i2j[i]
-                    skip = sphere_skip.apply(
-                        params["sp_convs"][j], skip, skip_tables[j],
-                        groups=groups, margin=skip_margins[j])
+                    if skip_grids is not None:
+                        skip = sphere_skip.apply(params["sp_convs"][j], skip,
+                                                 None, grid=skip_grids[j])
+                    else:
+                        skip = sphere_skip.apply(
+                            params["sp_convs"][j], skip, skip_tables[j],
+                            groups=groups, margin=skip_margins[j])
                 skip = rgb_specs[cur_rgb].apply(
                     params["to_rgbs"][cur_rgb], h, styles[:, t["tgt"]], skip)
                 cur_rgb += 1
@@ -342,14 +392,13 @@ class Generator:
                 "supported; only 'each_layer' (the shipped mode)")
         if not tp.use_ss or tp.styleGAN2_baseline:
             raise NotImplementedError("the port supports the SS generator only")
-        if not tp.ss_disable_noise or tp.ss_mapping:
-            raise NotImplementedError(
-                "ss_disable_noise=False / ss_mapping=True are not ported")
         ss = StructureSynthesizer(
             local_dim=tp.local_latent_dim, global_dim=tp.global_latent_dim,
             coord_dim=tp.coord_num_dir, n_layers=tp.ss_n_layers,
             unfold_radius=tp.ss_unfold_radius,
             use_angular_div=tp.diversity_angular,
+            disable_noise=tp.ss_disable_noise,
+            use_mapping=tp.ss_mapping,
             coord_grid=CoordGrid(
                 ts_input_size=tp.ts_input_size,
                 ss_unfold_size=tp.ss_unfold_size,
@@ -404,41 +453,54 @@ class Generator:
     def apply(self, params: dict, *, global_latent: torch.Tensor,
               local_latent: torch.Tensor, coords: torch.Tensor,
               cp: CoordsPartial, noises: Sequence[torch.Tensor],
+              ss_noises: Optional[Sequence[torch.Tensor]] = None,
               inject_index: Optional[torch.Tensor] = None,
               ss_tables_mode: str = "fused",
               ts_skip_margins: Optional[Sequence[int]] = None,
               compute_diversity: bool = False) -> Dict[str, torch.Tensor]:
         """One patch per sample: global_latent (B,2,D), local_latent
-        (B,S,S,local_dim), coords (B,S,S,3) raw indices, cp one crop per
-        sample (on local_latent's device, or the CPU), noises one map per
-        TS conv.  The skip convs run on per-sample tap tables.
+        (B,S,S,local_dim), coords (B,S,S,coord_dim) raw indices, cp one
+        crop per sample (on local_latent's device, or the CPU), noises one
+        map per TS conv, ss_noises one map per SS planar conv (with
+        ss_disable_noise False; None adds none).  The skip convs run on
+        per-sample tap tables at the sizes this structure latent gives.
 
         ss_tables_mode "fused" (inference): the SS sphere convs run on the
         per-sample sphere-conv kernel; "sample" (training): on the tap
-        sampler + einsum.  ts_skip_margins: static skip margins (training,
-        no host sync); None measures them from the tables.  Returns
-        {"gen": (B,patch,patch,3), "structure_latent", "styles"} and, with
+        sampler + einsum; "grid": SS and skip convs on the per-pixel patch
+        grids, the JAX package's path without tables, exact on windows the
+        row-offset tables do not describe (extrapolated crops).
+        ts_skip_margins: static skip margins (training, no host sync);
+        None measures them from the tables.  Returns {"gen":
+        (B,patch,patch,3), "structure_latent", "styles"} and, with
         compute_diversity, "diversity_z_loss"."""
         dev = local_latent.device
         sizes = self.ss.layer_sizes(local_latent.shape[1])
+        grids = tables = skip_grids = skip_tables = None
         if ss_tables_mode == "sample":
-            grids = None
             tables = self.ss.train_tables(cp, local_latent.shape[1])
         else:
             grids = [sphere_patch_grid_batch(cp, s, s).to(dev) for s in sizes]
+        if ss_tables_mode == "fused":
             tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
                       for s in sizes]
-        skip = [sphere_offset_tables_batch(cp, s, s)
-                for s in self.ts.skip_sizes()]
-        if ts_skip_margins is None:
-            ts_skip_margins = [skip_margin(t) for t in skip]
         structure = self.ss.apply(params["ss"], global_latent[:, 0],
                                   local_latent, coords, grids, tables,
-                                  tables_mode=ss_tables_mode)
+                                  tables_mode=ss_tables_mode,
+                                  noises=ss_noises)
+        skip_sizes = self.ts.skip_sizes(structure.shape[1])
+        if ss_tables_mode == "grid":
+            skip_grids = [sphere_patch_grid_batch(cp, s, s).to(dev)
+                          for s in skip_sizes]
+        else:
+            skip = [sphere_offset_tables_batch(cp, s, s) for s in skip_sizes]
+            if ts_skip_margins is None:
+                ts_skip_margins = [skip_margin(t) for t in skip]
+            skip_tables = [tables_to(t, dev) for t in skip]
         styles = self.build_styles(params, global_latent, inject_index)
-        img = self.ts.synthesize(
-            params["ts"], structure, styles, noises,
-            [tables_to(t, dev) for t in skip], ts_skip_margins)
+        img = self.ts.synthesize(params["ts"], structure, styles, noises,
+                                 skip_tables, ts_skip_margins,
+                                 skip_grids=skip_grids)
         out = {"gen": img, "structure_latent": structure, "styles": styles}
         if compute_diversity and self.use_div_z:
             out["diversity_z_loss"] = self.ss.diversity_z_loss(

@@ -4,11 +4,13 @@ spgan_tpu/models/latents.py: the training draws).
   * sample_global: a (B, 2, D) pair; the second entry equals the first
     unless one style-mixing coin (p = mixing) for the whole batch succeeds.
   * sample_local: (B, S+2*ss_pad, S+2*ss_pad, C), including the SS padding
-    ring.
+    ring; spatial_size_enlarge m widens S to round(m * (S // 2)) * 2 + 1
+    (the extrapolated grids of the training loop).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -31,11 +33,17 @@ class LatentSampler:
         z2 = torch.where(coin < self.mixing, z2, z1)
         return torch.stack([z1, z2], dim=1)
 
-    @property
-    def local_size(self) -> int:
-        return self.ts_input_size + 2 * self.ss_unfold_size
+    def local_shape(self, spatial_size_enlarge: float = 1
+                    ) -> Tuple[int, int]:
+        """(H, W) of a local latent, the SS padding ring included."""
+        s = self.ts_input_size
+        if spatial_size_enlarge != 1:
+            s = int(round(self.ts_input_size // 2 * spatial_size_enlarge)) \
+                * 2 + 1
+        return (s + 2 * self.ss_unfold_size, s + 2 * self.ss_unfold_size)
 
-    def sample_local(self, gen: torch.Generator, batch: int) -> torch.Tensor:
-        s = self.local_size
-        return torch.randn((batch, s, s, self.local_dim), generator=gen,
+    def sample_local(self, gen: torch.Generator, batch: int,
+                     spatial_size_enlarge: float = 1) -> torch.Tensor:
+        h, w = self.local_shape(spatial_size_enlarge)
+        return torch.randn((batch, h, w, self.local_dim), generator=gen,
                            device=gen.device)

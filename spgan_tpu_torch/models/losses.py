@@ -21,13 +21,15 @@ def g_nonsaturating_loss(fake_pred: torch.Tensor) -> torch.Tensor:
     return F.softplus(-fake_pred).mean()
 
 
-def d_r1_penalty(d_fn: Callable, params: dict,
-                 real_img: torch.Tensor) -> torch.Tensor:
+def d_r1_penalty(d_fn: Callable, params: dict, real_img: torch.Tensor,
+                 **d_kwargs) -> torch.Tensor:
     """Mean over samples of the squared gradient norm of sum(D(real)) w.r.t.
-    the real image.  d_fn(params, img) -> {"d_patch": (B,1)}; the graph is
-    kept, so the penalty differentiates w.r.t. params."""
+    the real image.  d_fn(params, img, **d_kwargs) -> {"d_patch": (B,1)}
+    (d_kwargs carry the ac labels and the train flag of the projection
+    head); the graph is kept, so the penalty differentiates w.r.t.
+    params."""
     img = real_img.detach().requires_grad_(True)
-    out = d_fn(params, img)["d_patch"].sum()
+    out = d_fn(params, img, **d_kwargs)["d_patch"].sum()
     (grad,) = torch.autograd.grad(out, img, create_graph=True)
     return grad.square().reshape(grad.shape[0], -1).sum(1).mean()
 

@@ -1,17 +1,22 @@
 """Training CLI of the port (counterpart of the repo's train.py):
 
     python -m spgan_tpu_torch.train configs/model/spgan_run5k.yaml \\
-        [--debug] [--seed N] [--max-iters N] [--profile-dir DIR \\
-        --profile-start I --profile-iters N] [--device cuda|cpu]
+        [--debug] [--seed N] [--max-iters N] [--baseline-ckpt PATH] \\
+        [--profile-dir DIR --profile-start I --profile-iters N] \\
+        [--device cuda|cpu]
 
 Trains the model of the yaml on its data source (data_params), writing
 <log_dir>/<exp_name>/{ckpt,tb,codes}, and resumes from the newest
-checkpoint there.  --debug runs one iteration at batch <= 8 and writes
-nothing.  Runs on cuda unless --device cpu.  Export the EMA generator of
-a run with spgan_tpu_torch.compat.load.save_params_npz, or pass its ckpt
-directory to python -m spgan_tpu_torch.infer --ckpt.
+checkpoint there.  --baseline-ckpt starts the generator from an
+InfinityGAN baseline checkpoint (with train_params.freeze its loaded
+weights and the whole discriminator stay fixed).  --debug runs one
+iteration at batch <= 8 and writes nothing.  Runs on cuda unless
+--device cpu.  Export the EMA generator of a run with
+spgan_tpu_torch.compat.load.save_params_npz, or pass its ckpt directory
+to python -m spgan_tpu_torch.infer --ckpt.
 """
 import argparse
+import os
 
 from spgan_tpu_torch.config import load_config
 from spgan_tpu_torch.train.loop import train
@@ -27,7 +32,7 @@ def main(argv=None):
     ap.add_argument("--max-iters", type=int, default=None)
     ap.add_argument("--baseline-ckpt", default=None,
                     help="transfer-learn from an InfinityGAN baseline "
-                         "checkpoint (not ported: ROADMAP A8b.3)")
+                         "checkpoint (torch; its g_ema or g entry)")
     ap.add_argument("--coordinator", default=None,
                     help="multi-host coordinator (not ported: ROADMAP A12)")
     ap.add_argument("--num-processes", type=int, default=None)
@@ -42,10 +47,10 @@ def main(argv=None):
                     help="number of iterations in the trace window")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.baseline_ckpt is not None:
-        raise NotImplementedError("--baseline-ckpt (baseline transfer, "
-                                  "compat/baseline.py) is not ported "
-                                  "(ROADMAP A8b.3)")
+    if args.baseline_ckpt is not None and \
+            not os.path.isfile(args.baseline_ckpt):
+        raise FileNotFoundError(f"--baseline-ckpt {args.baseline_ckpt}: "
+                                "no such file")
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError("multi-process training (--coordinator, "
@@ -56,7 +61,7 @@ def main(argv=None):
         cfg.train_params.batch_size = min(cfg.train_params.batch_size, 8)
     return train(cfg, debug=args.debug, seed=args.seed,
                  max_iters=args.max_iters, device=args.device,
-                 profile_dir=args.profile_dir,
+                 baseline_ckpt=args.baseline_ckpt, profile_dir=args.profile_dir,
                  profile_start=args.profile_start,
                  profile_iters=args.profile_iters)
 

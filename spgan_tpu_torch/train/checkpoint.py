@@ -7,7 +7,8 @@ leaves the earlier checkpoints intact (a leftover temporary file is
 ignored).  The newest ``max_to_keep`` are kept.  Each file holds a format
 tag, the step, the PPL running mean and every tensor of the TrainState on
 the CPU under its flat ``a/b/0/c`` key: ``params_g/...``,
-``params_d/...``, ``params_g_ema/...`` and ``opt_g|opt_d/mu|nu|count/...``.
+``params_d/...``, ``params_g_ema/...`` and ``opt_g|opt_d/mu|nu|count/...``
+(an SGD state has no tensors).
 Files are read back with ``torch.load(weights_only=True)``.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from spgan_tpu_torch.train.state import AdamState, TrainState
+from spgan_tpu_torch.train.state import TrainState
 from spgan_tpu_torch.tree import flatten
 
 FORMAT = "spgan_tpu_torch.TrainState/1"
@@ -41,7 +42,7 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
         out.update(flatten(getattr(state, name), f"{name}/"))
     for name in _OPTS:
         opt = getattr(state, name)
-        for f in fields(AdamState):
+        for f in fields(opt):
             out.update(flatten(getattr(opt, f.name), f"{name}/{f.name}/"))
     return out
 
@@ -137,11 +138,11 @@ class CheckpointManager:
                    "the stale checkpoint directory or restart training from "
                    "scratch." if opt_hint else ""))
 
-        def opt(name: str) -> AdamState:
+        def opt(name: str):
             t = getattr(template, name)
-            return AdamState(**{f.name: _rebuild(getattr(t, f.name),
-                                                  f"{name}/{f.name}/", saved)
-                                for f in fields(AdamState)})
+            return type(t)(**{f.name: _rebuild(getattr(t, f.name),
+                                                f"{name}/{f.name}/", saved)
+                              for f in fields(t)})
 
         return TrainState(
             step=payload["step"],

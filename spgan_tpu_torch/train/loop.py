@@ -2,9 +2,16 @@
 
   * lazy R1 every d_reg_every, lazy PPL every g_reg_every from
     g_path_start on, on absolute iterations;
+  * steps_per_call K: K batches and K steps a loop call (the ticks fire
+    when the K iterations of a call cross their multiple, crossed_tick);
   * scalars every log_tick (stdout; tensorboard when tensorboardX
     imports), image grids of the EMA generator every img_tick (tensorboard
-    only), rolling checkpoints every save_tick, auto-resume from the newest;
+    only; with no_ext false also the extrapolated grids of 2x and 4x
+    wider latents), rolling checkpoints every save_tick, auto-resume from
+    the newest;
+  * baseline transfer: an InfinityGAN baseline checkpoint's generator
+    weights are loaded before the first step (compat/baseline.py); with
+    train_params.freeze they and the whole discriminator stay fixed;
   * --debug: one full iteration, nothing written to disk;
   * an exception is appended to <log_dir>/<exp_name>/error-log.txt and
     re-raised.
@@ -21,7 +28,7 @@ from __future__ import annotations
 import os
 import time
 import traceback
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from spgan_tpu_torch.ops.spatial import out_size_chain
 from spgan_tpu_torch.train.checkpoint import CheckpointManager
 from spgan_tpu_torch.train.state import TrainState, create_train_state
 from spgan_tpu_torch.train.step import _DTYPES, make_train_step
+from spgan_tpu_torch.tree import tree_leaves, tree_map
 from spgan_tpu_torch.utils.misc import backup_files, import_func
 
 # tensorboard event files are closed and reopened every this many
@@ -46,6 +54,17 @@ def crossed_tick(it: int, adv: int, n: int) -> bool:
     """Whether the span (it - adv, it] of iterations holds a multiple of
     n."""
     return (it // n) > ((it - adv) // n)
+
+
+def ext_mult_list(cfg: Config) -> List[int]:
+    """Latent widening factors of the extrapolated image grids: none above
+    patch 512, [2] above 256, none with no_ext, else [2, 4]."""
+    tp = cfg.train_params
+    if tp.patch_size > 512:
+        return []
+    if tp.patch_size > 256:
+        return [2]
+    return [] if tp.no_ext else [2, 4]
 
 
 def iteration_generator(seed: int, it: int, device) -> torch.Generator:
@@ -70,13 +89,18 @@ def _to_grid(imgs: np.ndarray, ncol: int = 8) -> np.ndarray:
 
 def make_image_grids(cfg: Config, g: Generator, seed: int, device
                      ) -> Callable[[dict, int], Dict[str, np.ndarray]]:
-    """grids(params_ema, it) -> {"samples/ema", "samples/style_diversity",
+    """grids(params_ema, it) -> {"samples/ema", "samples/ema_ext<m>" for m
+    in ext_mult_list, "samples/style_diversity",
     "samples/structure_diversity"}: uint8 grids of the EMA generator on
     random training crops (reference train.py:463-622).  "ema" renders
-    min(n_save_sample, 16) fixed latents; style diversity one fixed local
-    latent under min(n, 8) fresh global ones; structure diversity one
-    fixed global latent under fresh local ones.  The crops and fresh
-    latents of iteration `it` come from (seed + 1, it)."""
+    min(n_save_sample, 16) fixed latents; "ema_ext<m>" the same global
+    latents over fixed local latents m times wider, on extrapolated
+    coordinate grids; style diversity one fixed local latent under min(n,
+    8) fresh global ones; structure diversity one fixed global latent
+    under fresh local ones.  The crops, noises and fresh latents of
+    iteration `it` come from (seed + 1, it).  After a call, grids.ms holds
+    each grid's ms on the host clock (its forward and the copy to the
+    host)."""
     tp = cfg.train_params
     dev = resolve(device)
     cdt = _DTYPES[tp.compute_dtype]
@@ -85,7 +109,6 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
                             ts_input_size=tp.ts_input_size,
                             ss_unfold_size=tp.ss_unfold_size,
                             mixing=tp.mixing)
-    sizes = out_size_chain(g.ts.conv_specs_spatial(), tp.ts_input_size)
     margins = g.training_skip_margins()
     n_vis = min(cfg.log_params.n_save_sample, 16)
     n_div = min(n_vis, 8)
@@ -96,30 +119,60 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
 
     fixed = torch.Generator(device=dev).manual_seed(seed + 1)
     vis_gl, vis_ll = unmixed(fixed, n_vis), sampler.sample_local(fixed, n_vis)
+    vis_ext = {m: sampler.sample_local(fixed, n_vis, spatial_size_enlarge=m)
+               for m in ext_mult_list(cfg)}
 
     def forward(params, gl, ll, gen):
-        n = gl.shape[0]
-        coords, _, cp = g.ss.coord_grid.sample_training(gen, n)
+        """One grid's images: on training crops through the training
+        step's sample-mode convs; a local latent wider than the training
+        one on extrapolated crops, through the convs on the patch grids
+        (as in the JAX package: the row-offset tables do not describe
+        those windows)."""
+        n, size = gl.shape[0], ll.shape[1]
+        grid = g.ss.coord_grid
+        if size == grid.ss_spatial_size:
+            coords, _, cp = grid.sample_training(gen, n)
+            mode, skip_margins = "sample", margins
+        else:
+            coords, _, cp = grid.sample_training_extrap(gen, n, size)
+            mode, skip_margins = "grid", None
+        in_ts = g.ss.noise_sizes(size)[-1]
         noises = [torch.randn((n, s, s, 1), generator=gen,
-                              device=dev).to(cdt) for s in sizes]
+                              device=dev).to(cdt)
+                  for s in out_size_chain(g.ts.conv_specs_spatial(), in_ts)]
+        ss_noises = None if g.ss.disable_noise else [
+            torch.randn((n, s, s, 1), generator=gen, device=dev).to(cdt)
+            for s in g.ss.noise_sizes(size)]
         out = g.apply(params, global_latent=gl.to(cdt),
                       local_latent=ll.to(cdt), coords=coords, cp=cp,
-                      noises=noises, ss_tables_mode="sample",
-                      ts_skip_margins=margins)["gen"]
+                      noises=noises, ss_noises=ss_noises,
+                      ss_tables_mode=mode,
+                      ts_skip_margins=skip_margins)["gen"]
         return out.float().cpu().numpy()
 
     @torch.no_grad()
     def grids(params_ema: dict, it: int) -> Dict[str, np.ndarray]:
         gen = iteration_generator(seed + 1, it, dev)
-        ema = forward(params_ema, vis_gl, vis_ll, gen)
-        style = forward(params_ema, unmixed(gen, n_div),
-                        vis_ll[:1].repeat(n_div, 1, 1, 1), gen)
-        structure = forward(params_ema, vis_gl[:1].repeat(n_div, 1, 1),
-                            sampler.sample_local(gen, n_div), gen)
-        return {"samples/ema": _to_grid(ema),
-                "samples/style_diversity": _to_grid(style),
-                "samples/structure_diversity": _to_grid(structure)}
+        jobs = [("samples/ema", 8, lambda: forward(params_ema, vis_gl,
+                                                    vis_ll, gen))]
+        jobs += [(f"samples/ema_ext{m}", max(1, 8 // m),
+                  lambda ll=ll: forward(params_ema, vis_gl, ll, gen))
+                 for m, ll in vis_ext.items()]
+        jobs += [
+            ("samples/style_diversity", 8, lambda: forward(
+                params_ema, unmixed(gen, n_div),
+                vis_ll[:1].repeat(n_div, 1, 1, 1), gen)),
+            ("samples/structure_diversity", 8, lambda: forward(
+                params_ema, vis_gl[:1].repeat(n_div, 1, 1),
+                sampler.sample_local(gen, n_div), gen))]
+        out, grids.ms = {}, {}
+        for tag, ncol, run in jobs:
+            t0 = time.perf_counter()
+            out[tag] = _to_grid(run(), ncol)
+            grids.ms[tag] = (time.perf_counter() - t0) * 1e3
+        return out
 
+    grids.ms = {}
     return grids
 
 
@@ -157,15 +210,38 @@ def _log_tick(writer, it: int, total: int, scalars: dict, dt: float,
                           torch.cuda.max_memory_allocated(dev) / 2 ** 20, it)
 
 
+def load_baseline(cfg: Config, g: Generator, state: TrainState,
+                  path: str):
+    """(state with the baseline's generator weights in params_g and
+    params_g_ema, freeze mask or None) from an InfinityGAN baseline
+    checkpoint: its g_ema (or g) entry, or a bare state dict.  The mask
+    (True on the loaded leaves) is returned with train_params.freeze."""
+    from spgan_tpu_torch.compat.baseline import import_torch_baseline_generator
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = raw.get("g_ema", raw.get("g", raw))
+    params_g, mask = import_torch_baseline_generator(sd, g, state.params_g)
+    state.params_g = params_g
+    state.params_g_ema = tree_map(torch.clone, params_g)
+    freeze = cfg.train_params.freeze
+    print(f" [*] Baseline transfer: {sum(tree_leaves(mask))} tensors "
+          f"loaded{' (frozen)' if freeze else ''}")
+    return state, (mask if freeze else None)
+
+
 def train(cfg: Config, debug: bool = False, seed: int = 0,
           max_iters: Optional[int] = None, device=None,
+          baseline_ckpt: Optional[str] = None,
           profile_dir: Optional[str] = None, profile_start: int = 3,
           profile_iters: int = 5) -> TrainState:
     """Train for min(iter, max_iters) iterations (resuming from the newest
     checkpoint under <log_dir>/<exp_name>/ckpt) on `device` (default
-    cuda); returns the final state.  profile_dir: a torch.profiler Chrome
-    trace of iterations [profile_start, profile_start + profile_iters),
-    counted from the loop's start, is written there.
+    cuda); returns the final state.  baseline_ckpt: transfer from an
+    InfinityGAN baseline checkpoint (load_baseline) before resuming.
+    profile_dir: a torch.profiler Chrome trace of iterations
+    [profile_start, profile_start + profile_iters), counted from the
+    loop's start, is written there (with steps_per_call K the window
+    opens and closes at the first call boundary at or past its ends).
 
     With compute_dtype float32, TF32 is turned off for cuDNN convolutions
     and cuBLAS matmuls (PyTorch enables it for cuDNN by default), so the
@@ -192,12 +268,16 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
     state = create_train_state(cfg, g, d,
                                torch.Generator().manual_seed(seed),
                                device=dev)
+    freeze_g_mask = None
+    if baseline_ckpt is not None:
+        state, freeze_g_mask = load_baseline(cfg, g, state, baseline_ckpt)
     start_iter = 0
     if ckpt_mgr is not None and ckpt_mgr.latest_step() is not None:
         state = ckpt_mgr.restore(state)
         start_iter = state.step
         print(f" [*] Resumed from iter {start_iter}")
-    step_fn = make_train_step(cfg, g, d)
+    k_steps = max(1, tp.steps_per_call)
+    step_fn = make_train_step(cfg, g, d, freeze_g_mask=freeze_g_mask)
     grids = (make_image_grids(cfg, g, seed, dev) if writer is not None
              else None)
     pipeline = make_train_pipeline(cfg, seed=seed)
@@ -212,10 +292,14 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def on_dev(batch, key):
+        return torch.as_tensor(batch[key]).to(dev)
+
     try:
         while it < total:
             if (profile_dir is not None and prof is None
-                    and it - start_iter == profile_start):
+                    and prof_start is None
+                    and it - start_iter >= profile_start):
                 from torch.profiler import ProfilerActivity, profile
 
                 sync()
@@ -225,16 +309,23 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                 prof = profile(activities=acts)
                 prof.__enter__()
                 prof_start = it
-            batch = next(pipeline)
-            do_r1 = it % tp.d_reg_every == 0
-            do_ppl = it % tp.g_reg_every == 0 and it >= tp.g_path_start
-            state, metrics = step_fn(
-                state, torch.as_tensor(batch["patch"]).to(dev),
-                torch.as_tensor(batch["ac_coords"]).to(dev),
-                iteration_generator(seed, it, dev),
-                do_r1=do_r1, do_ppl=do_ppl)
-            it += 1
-            if prof is not None and it - prof_start == profile_iters:
+            k = min(k_steps, total - it)
+            for j in range(k):
+                batch = next(pipeline)
+                do_r1 = (it + j) % tp.d_reg_every == 0
+                do_ppl = ((it + j) % tp.g_reg_every == 0
+                          and it + j >= tp.g_path_start)
+                state, metrics = step_fn(
+                    state, on_dev(batch, "patch"), on_dev(batch, "ac_coords"),
+                    iteration_generator(seed, it + j, dev), do_r1=do_r1,
+                    do_ppl=do_ppl)
+                if do_r1:
+                    reg_carry["r1"] = metrics["r1"]
+                if do_ppl:
+                    reg_carry["path"] = metrics["path"]
+                    reg_carry["path_lengths"] = metrics["path_lengths"]
+            it += k
+            if prof is not None and it - prof_start >= profile_iters:
                 sync()
                 prof.__exit__(None, None, None)
                 done, prof = prof, None
@@ -243,29 +334,28 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                 done.export_chrome_trace(path)
                 print(f" [*] Profiler trace of iterations [{prof_start}, "
                       f"{it}) written to {path}")
-            if do_r1:
-                reg_carry["r1"] = metrics["r1"]
-            if do_ppl:
-                reg_carry["path"] = metrics["path"]
-                reg_carry["path_lengths"] = metrics["path_lengths"]
 
             if debug:
                 print(" [debug] one iteration OK —",
                       {k: round(float(v), 4) for k, v in metrics.items()},
                       flush=True)
                 break
-            if crossed_tick(it, 1, lp.log_tick):
+
+            def tick(n):
+                return crossed_tick(it, k, n)
+
+            if tick(lp.log_tick):
                 now = time.perf_counter()
                 _log_tick(writer, it, total, {**metrics, **reg_carry},
                           (now - t_last) / (it - it_last), state, dev)
                 t_last, it_last = now, it
-            if crossed_tick(it, 1, lp.img_tick) and writer is not None:
+            if tick(lp.img_tick) and writer is not None:
                 for tag, grid in grids(state.params_g_ema, it).items():
                     writer.add_image(tag, grid, it, dataformats="HWC")
-            if crossed_tick(it, 1, lp.save_tick) and ckpt_mgr is not None:
+            if tick(lp.save_tick) and ckpt_mgr is not None:
                 ckpt_mgr.save(it, state)
             if (writer is not None and it > start_iter
-                    and crossed_tick(it, 1, TB_PARTITION_STEPS)):
+                    and tick(TB_PARTITION_STEPS)):
                 writer.close()
                 writer = _open_writer(exp_root)
     except Exception:

@@ -3,14 +3,16 @@
 
 Optimizer parity: Adam with the lazy-regularizer discount: for a module
 regularized every N steps, lr *= N/(N+1) and betas = (0 ** ratio,
-0.99 ** ratio) with ratio = N/(N+1).  EMA decay 0.5 ** (32/10000).
+0.99 ** ratio) with ratio = N/(N+1); or, with optimizer "sgd", plain SGD
+at the same discounted lr.  lr_sch halves every update from each of its
+milestones on.  EMA decay 0.5 ** (32/10000).
 Parameters, moments and counts are trees of tensors (see tree.py); every
 update is functional (new tensors, the old state stays valid).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
@@ -31,8 +33,8 @@ class TrainState:
     params_g: Any
     params_d: Any
     params_g_ema: Any
-    opt_g: AdamState
-    opt_d: AdamState
+    opt_g: Any       # AdamState, or SGDState under optimizer "sgd"
+    opt_d: Any
     mean_path_length: torch.Tensor
 
 
@@ -70,9 +72,10 @@ class TorchAdam:
             count=tree_map(lambda p: torch.zeros((), dtype=torch.int32,
                                                  device=p.device), params))
 
-    def step(self, params: Any, grads: Any, state: AdamState,
-             active: Optional[Any] = None):
-        """Returns (new params, new state).  grads: a tree of tensors or
+    def update(self, params: Any, grads: Any, state: AdamState,
+               active: Optional[Any] = None):
+        """Returns (updates, new state): updates is a list in tree_leaves
+        order, None where a leaf is skipped.  grads: a tree of tensors or
         None (skipped); active: an optional tree of python bools that
         overrides the zero test (True: stepped even with a zero grad)."""
         b1, b2, lr, eps = self.b1, self.b2, self.lr, self.eps
@@ -80,13 +83,13 @@ class TorchAdam:
         g_l = tree_leaves(grads)
         a_l = (tree_leaves(active) if active is not None
                else [None] * len(p_l))
-        out = {"p": [], "mu": [], "nu": [], "count": []}
+        out = {"u": [], "mu": [], "nu": [], "count": []}
         for p, g, a, m, n, c in zip(p_l, g_l, a_l, tree_leaves(state.mu),
                                     tree_leaves(state.nu),
                                     tree_leaves(state.count)):
             if a is False or (a is None and g is None):
                 # skipped: known on the host, nothing changes
-                for k, v in (("p", p), ("mu", m), ("nu", n), ("count", c)):
+                for k, v in (("u", None), ("mu", m), ("nu", n), ("count", c)):
                     out[k].append(v)
                 continue
             if g is None:
@@ -106,24 +109,94 @@ class TorchAdam:
             upd = -lr * ((m / bc1) / (torch.sqrt(n / bc2) + eps))
             if a is None:
                 upd = torch.where(act & (c > 0), upd, torch.zeros_like(m))
-            out["p"].append(p + upd.to(p.dtype))
+            out["u"].append(upd)
             out["mu"].append(m)
             out["nu"].append(n)
             out["count"].append(c)
-        return (tree_unflatten(params, out["p"]),
-                AdamState(mu=tree_unflatten(params, out["mu"]),
-                          nu=tree_unflatten(params, out["nu"]),
-                          count=tree_unflatten(params, out["count"])))
+        return out["u"], AdamState(mu=tree_unflatten(params, out["mu"]),
+                                   nu=tree_unflatten(params, out["nu"]),
+                                   count=tree_unflatten(params, out["count"]))
+
+    def step(self, params: Any, grads: Any, state: AdamState,
+             active: Optional[Any] = None, **apply_kw):
+        """update, then apply_updates: returns (new params, new state)."""
+        upd, state = self.update(params, grads, state, active)
+        return apply_updates(params, upd, **apply_kw), state
+
+
+@dataclass
+class SGDState:
+    """optax.sgd without momentum keeps no state."""
+
+
+@dataclass(frozen=True)
+class SGD:
+    """Plain SGD (optax.sgd(lr), no momentum): update = -lr * g.  A leaf
+    without a gradient is not updated, as torch.optim.SGD skips it; the
+    `active` mask of the R1 phase does not apply."""
+
+    lr: float
+
+    def init(self, params: Any) -> SGDState:
+        return SGDState()
+
+    def update(self, params: Any, grads: Any, state: SGDState,
+               active: Optional[Any] = None):
+        return [None if g is None else g * -self.lr
+                for g in tree_leaves(grads)], state
+
+    def step(self, params: Any, grads: Any, state: SGDState,
+             active: Optional[Any] = None, **apply_kw):
+        upd, state = self.update(params, grads, state)
+        return apply_updates(params, upd, **apply_kw), state
+
+
+def apply_updates(params: Any, updates: List[Optional[torch.Tensor]],
+                  frozen: Optional[Any] = None,
+                  factor: Optional[float] = None) -> Any:
+    """params + updates, leaf by leaf (updates in tree_leaves order; None
+    leaves the parameter as it is).  frozen: a tree of python bools whose
+    True leaves keep their value (the JAX step zeroes their update after
+    the optimizer, so the optimizer's moments still advance); factor: the
+    lr schedule's factor, multiplying every update."""
+    f_l = (tree_leaves(frozen) if frozen is not None
+           else [False] * len(updates))
+    out = []
+    for p, u, fz in zip(tree_leaves(params), updates, f_l):
+        if u is None or fz:
+            out.append(p)
+            continue
+        if factor is not None:
+            u = u * factor
+        out.append(p + u.to(p.dtype))
+    return tree_unflatten(params, out)
 
 
 def make_optimizers(cfg: Config):
     tp = cfg.train_params
     g_ratio = reg_ratio(tp.g_reg_every)
     d_ratio = reg_ratio(tp.d_reg_every)
+    if tp.optimizer == "sgd":
+        # SGD keeps the lazy-regularizer lr discount
+        return SGD(tp.lr * g_ratio), SGD(tp.lr * d_ratio * tp.d_weight)
     opt_g = TorchAdam(tp.lr * g_ratio, b1=0.0 ** g_ratio, b2=0.99 ** g_ratio)
     opt_d = TorchAdam(tp.lr * d_ratio * tp.d_weight, b1=0.0 ** d_ratio,
                       b2=0.99 ** d_ratio)
     return opt_g, opt_d
+
+
+def lr_schedule_factor(cfg: Config, step: int) -> Optional[float]:
+    """MultiStepLR(gamma=0.5) factor at iteration `step`: 0.5 per milestone
+    of lr_sch that step has reached (both optimizers step their schedulers
+    once an iteration); None without lr_sch."""
+    tp = cfg.train_params
+    if not tp.lr_sch:
+        return None
+    f = 1.0
+    for m in tp.lr_sch:
+        if step >= m:
+            f *= 0.5
+    return f
 
 
 def create_train_state(cfg: Config, g, d, gen: torch.Generator,

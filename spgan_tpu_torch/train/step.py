@@ -9,7 +9,10 @@ spgan_tpu/train/step.py).
   5. EMA accumulate.
 
 Gradients come from torch.autograd.grad on parameter trees
-(create_graph=True inside R1 and PPL).  Every G forward runs the SS sphere
+(create_graph=True inside R1 and PPL).  After each optimizer update the
+G update is zeroed on the leaves of the freeze mask (baseline transfer)
+and, with freeze, the whole D update (R1 included); the optimizer's state
+still advances.  The lr schedule's factor multiplies every update.  Every G forward runs the SS sphere
 convs in tables_mode "sample": the tap sampler kernel on cuda, its plain
 version on the CPU.  Every random draw of a step (latents, crop origins and
 jitter, the mixing coin, the inject index, the noise maps of each G forward
@@ -19,8 +22,8 @@ which a caller may replace to feed known draws.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,7 +35,7 @@ from spgan_tpu_torch.models.generator import Generator, pair_inputs, tables_to
 from spgan_tpu_torch.models.latents import LatentSampler
 from spgan_tpu_torch.ops.spatial import out_size_chain
 from spgan_tpu_torch.train.state import (TrainState, ema_update, global_norm,
-                                         make_optimizers)
+                                         lr_schedule_factor, make_optimizers)
 from spgan_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,6 +52,8 @@ class GDraws:
     jitter: torch.Tensor        # (num_dir,) float32, shared by the batch
     inject: torch.Tensor        # 0-d int64 in [1, n_latent)
     noises: List[torch.Tensor]  # one (bsz, h, w, 1) map per TS conv
+    # one (bsz, h, w, 1) map per SS planar conv (ss_disable_noise False)
+    ss_noises: List[torch.Tensor] = field(default_factory=list)
 
 
 @dataclass
@@ -72,9 +77,12 @@ class TrainStep:
     ``draw``).  Metrics are 0-d tensors on the device (no host sync)."""
 
     def __init__(self, cfg: Config, g: Generator, d: Discriminator,
-                 draw: Optional[Callable[..., StepDraws]] = None):
+                 draw: Optional[Callable[..., StepDraws]] = None,
+                 freeze_g_mask: Optional[Any] = None):
         tp = cfg.train_params
         self.cfg, self.g, self.d = cfg, g, d
+        # a tree of python bools over params_g (True: the update is zeroed)
+        self.freeze_g_mask = freeze_g_mask
         self.opt_g, self.opt_d = make_optimizers(cfg)
         self.cdt = _DTYPES[tp.compute_dtype]
         self.sampler = LatentSampler(
@@ -84,6 +92,8 @@ class TrainStep:
         self.skip_margins = g.training_skip_margins()
         self.noise_sizes = out_size_chain(g.ts.conv_specs_spatial(),
                                           tp.ts_input_size)
+        self.ss_noise_sizes = ([] if g.ss.disable_noise else
+                               g.ss.noise_sizes(self.sampler.local_shape()[0]))
         if draw is not None:
             self.draw = draw
 
@@ -99,7 +109,10 @@ class TrainStep:
                                  device=dev),
             noises=[torch.randn((bsz, s, s, 1), generator=gen,
                                 device=dev).to(self.cdt)
-                    for s in self.noise_sizes])
+                    for s in self.noise_sizes],
+            ss_noises=[torch.randn((bsz, s, s, 1), generator=gen,
+                                   device=dev).to(self.cdt)
+                       for s in self.ss_noise_sizes])
 
     def draw(self, gen: torch.Generator, do_ppl: bool) -> StepDraws:
         """Every random draw of one step, from `gen`."""
@@ -130,14 +143,18 @@ class TrainStep:
         gl, ll, coords, ac, cp = self.g_inputs(dr)
         out = self.g.apply(params_g, global_latent=gl, local_latent=ll,
                            coords=coords, cp=cp, noises=dr.noises,
+                           ss_noises=dr.ss_noises or None,
                            inject_index=dr.inject, ss_tables_mode="sample",
                            ts_skip_margins=self.skip_margins,
                            compute_diversity=compute_diversity)
         out["ac_coords"] = ac
         return out
 
-    def d_out(self, params_d, img) -> Dict[str, torch.Tensor]:
-        return {k: v.float() for k, v in self.d.apply(params_d, img).items()}
+    def d_out(self, params_d, img, ac) -> Dict[str, torch.Tensor]:
+        """D at training time (the projection head reads the labels `ac`),
+        in float32."""
+        return {k: v.float() for k, v in
+                self.d.apply(params_d, img, ac_coords=ac, train=True).items()}
 
     def ac_loss(self, pred, label):
         tp = self.cfg.train_params
@@ -153,8 +170,8 @@ class TrainStep:
         with torch.no_grad():
             fake = self.g_forward(params_g, dr, False)
         pd, leaves = _with_grad(params_d)
-        fp = self.d_out(pd, fake["gen"])
-        rp = self.d_out(pd, real)
+        fp = self.d_out(pd, fake["gen"], fake["ac_coords"])
+        rp = self.d_out(pd, real, real_ac)
         loss = losses.d_logistic_loss(rp["d_patch"], fp["d_patch"])
         metrics = {"d_adv_loss": loss.detach()}
         if self.d.use_coord_ac:
@@ -167,11 +184,13 @@ class TrainStep:
         return list(torch.autograd.grad(loss, leaves, allow_unused=True)), \
             metrics
 
-    def r1_grads(self, params_d, real):
-        """Lazy R1: (grads of r1/2 * penalty * d_reg_every, penalty)."""
+    def r1_grads(self, params_d, real, real_ac):
+        """Lazy R1 through the training-time D: (grads of r1/2 * penalty *
+        d_reg_every, penalty)."""
         tp = self.cfg.train_params
         pd, leaves = _with_grad(params_d)
-        r1 = losses.d_r1_penalty(self.d.apply, pd, real)
+        r1 = losses.d_r1_penalty(self.d.apply, pd, real, ac_coords=real_ac,
+                                 train=True)
         loss = tp.r1 / 2.0 * r1 * tp.d_reg_every
         return (list(torch.autograd.grad(loss, leaves, allow_unused=True)),
                 r1.detach())
@@ -182,7 +201,7 @@ class TrainStep:
         tp = self.cfg.train_params
         pg, leaves = _with_grad(params_g)
         out = self.g_forward(pg, dr, True)
-        fp = self.d_out(params_d, out["gen"])
+        fp = self.d_out(params_d, out["gen"], out["ac_coords"])
         loss = losses.g_nonsaturating_loss(fp["d_patch"])
         metrics = {"g_adv_loss": loss.detach()}
         if self.d.use_coord_ac:
@@ -216,6 +235,13 @@ class TrainStep:
         dr = self.draw(gen, do_ppl)
         real = real_patch.to(self.cdt)
         zero = torch.zeros((), device=real.device)
+        # the update rules of the JAX step: the lr factor of this
+        # iteration; with freeze the D update is zeroed whole, and the G
+        # update on the freeze mask's leaves
+        upd_d = {"factor": lr_schedule_factor(self.cfg, state.step),
+                 "frozen": (tree_map(lambda _: True, state.params_d)
+                            if tp.freeze else None)}
+        upd_g = {"factor": upd_d["factor"], "frozen": self.freeze_g_mask}
 
         grads, metrics = self.d_grads(state.params_g, state.params_d, real,
                                       real_ac, dr.d)
@@ -223,15 +249,19 @@ class TrainStep:
             metrics["grad_norm/d"] = global_norm(grads)
             params_d, opt_d = self.opt_d.step(
                 state.params_d, tree_unflatten(state.params_d, grads),
-                state.opt_d)
+                state.opt_d, **upd_d)
 
         metrics["r1"] = zero
         if do_r1 and tp.r1 != 0:
-            grads, metrics["r1"] = self.r1_grads(params_d, real)
+            grads, metrics["r1"] = self.r1_grads(params_d, real, real_ac)
             with torch.no_grad():
+                # torch-Adam's graph membership in the R1 phase; SGD has
+                # no per-leaf state, so it takes no mask
+                active = (None if tp.optimizer == "sgd"
+                          else self.d.r1_graph_mask(params_d))
                 params_d, opt_d = self.opt_d.step(
                     params_d, tree_unflatten(params_d, grads), opt_d,
-                    active=self.d.r1_graph_mask(params_d))
+                    active=active, **upd_d)
 
         grads, g_metrics = self.g_grads(state.params_g, params_d, dr.g)
         metrics.update(g_metrics)
@@ -241,7 +271,7 @@ class TrainStep:
             metrics["grad_norm/g_ss"] = global_norm(gtree["ss"])
             metrics["grad_norm/g_ts"] = global_norm(gtree["ts"])
             params_g, opt_g = self.opt_g.step(state.params_g, gtree,
-                                              state.opt_g)
+                                              state.opt_g, **upd_g)
 
         mean_path = state.mean_path_length
         metrics["path"] = metrics["path_lengths"] = zero
@@ -250,7 +280,8 @@ class TrainStep:
                 self.ppl_grads(params_g, dr, mean_path)
             with torch.no_grad():
                 params_g, opt_g = self.opt_g.step(
-                    params_g, tree_unflatten(params_g, grads), opt_g)
+                    params_g, tree_unflatten(params_g, grads), opt_g,
+                    **upd_g)
         metrics["mean_path_length"] = mean_path
 
         with torch.no_grad():
@@ -286,6 +317,6 @@ class TrainStep:
 
 
 def make_train_step(cfg: Config, g: Generator, d: Discriminator,
-                    draw: Optional[Callable[..., StepDraws]] = None
-                    ) -> TrainStep:
-    return TrainStep(cfg, g, d, draw=draw)
+                    draw: Optional[Callable[..., StepDraws]] = None,
+                    freeze_g_mask: Optional[Any] = None) -> TrainStep:
+    return TrainStep(cfg, g, d, draw=draw, freeze_g_mask=freeze_g_mask)

@@ -120,13 +120,21 @@ def test_load_config_inline_yamls_and_overrides(tmp_path):
     ("optimizer", "sgd"), ("lr_sch", [1000, 2000]), ("freeze", True),
     ("coord_use_pd", True), ("no_ext", False), ("steps_per_call", 4)])
 def test_unported_train_key_raises_unless_default(tmp_path, key, value):
+    """These keys were default-only until the port took their options:
+    each now loads into its field as the JAX package loads it, with no
+    warning; the one key still default-only (pallas_train_sampler, a TPU
+    code path) raises unless it holds the JAX default."""
     p = tmp_path / "m.yaml"
     p.write_text(f"train_params:\n  {key}: {value}\n")
-    with pytest.raises(NotImplementedError, match="A8b"):
+    assert key not in UNPORTED_TRAIN_DEFAULTS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = getattr(load_config(str(p)).train_params, key)
+    assert got == getattr(jax_load_config(str(p)).train_params, key) == value
+    p.write_text("train_params:\n  pallas_train_sampler: 'off'\n")
+    with pytest.raises(NotImplementedError, match="TPU"):
         load_config(str(p))
-    default = UNPORTED_TRAIN_DEFAULTS[key]
-    literal = {None: "~", False: "false", True: "true"}.get(default, default)
-    p.write_text(f"train_params:\n  {key}: {literal}\n")
+    p.write_text("train_params:\n  pallas_train_sampler: auto\n")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         load_config(str(p))

@@ -448,8 +448,14 @@ def test_load_generator_params_rejects(tiny, tmp_path):
                               device="cpu")
     with pytest.raises(ValueError, match="save_params_npz"):
         load_generator_params(str(tmp_path), tiny["g"], device="cpu")
+    # SS noise weights in a checkpoint are imported (as JAX imports them),
+    # so a generator without SS noise rejects the file's extra key
     sd = export_torch_style_state_dict(tiny["jparams"], tiny["jg"])
     sd["structure_synthesizer.implicit_model.conv_stack.1.conv.noise.weight"] \
-        = np.zeros(1, np.float32)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        import_torch_generator(sd, tiny["g"], device="cpu")
+        = np.full(1, 0.25, np.float32)
+    got = import_torch_generator(sd, tiny["g"], device="cpu")
+    assert float(got["ss"]["blocks"][0]["planar"]["noise"]["weight"]) == 0.25
+    noisy = str(tmp_path / "noisy.ckpt")
+    torch.save({"g_ema": {k: torch.tensor(v) for k, v in sd.items()}}, noisy)
+    with pytest.raises(ValueError, match="unexpected"):
+        load_generator_params(noisy, tiny["g"], device="cpu")

@@ -14,13 +14,13 @@ import torch
 from spgan_tpu_torch.ops.kernels import sphere_sample as ts
 
 
-def _random_tables(rng, B, H, K2, far=False):
-    """Random tables in range, shifts past the margin.  `far`: y0 and y1
-    drawn apart, so a tap row of 3 taps reaches up to 6 distinct rows,
-    more than the kernel's 3 row slots hold."""
+def _random_tables(rng, B, H, K2, far=False, shift=9):
+    """Random tables in range, shifts in [-shift, shift) (past the
+    margin).  `far`: y0 and y1 drawn apart, so a tap row of 3 taps reaches
+    up to 6 distinct rows, more than the kernel's 3 row slots hold."""
     t = {"y0": rng.randint(0, H, (B, H, K2)).astype(np.int32),
          "wy": rng.rand(B, H, K2).astype(np.float32),
-         "sx": rng.randint(-9, 9, (B, H, K2)).astype(np.int32),
+         "sx": rng.randint(-shift, shift, (B, H, K2)).astype(np.int32),
          "fx": rng.rand(B, H, K2).astype(np.float32)}
     if far:
         t["y1"] = rng.randint(0, H, (B, H, K2)).astype(np.int32)
@@ -33,7 +33,11 @@ def _random_tables(rng, B, H, K2, far=False):
 # 16-byte store of float32 and bf16, aligned and unaligned rows), W in
 # {1, 2, 11, 35} with H != W, H = 1, margins 1 and 6.  Odd W*C puts the
 # strips' starts at every residue mod 16 bytes (checked below).  The last
-# case's rows (103,600 bytes in float32) leave 2 slots, not 3.
+# case's rows (103,600 bytes in float32) leave 2 slots, not 3.  The
+# extrapolated image grids of the training loop run the first SS layers at
+# W = 45 and 65 (rows of 46,620 and 67,340 bytes in float32: 3 slots), with
+# column margins near 47 (their crops reach the pole); those cases draw
+# shifts past such a margin.
 CASES = [
     (3, 13, 11, 259, 6, False),
     (2, 9, 35, 259, 6, True),
@@ -45,6 +49,9 @@ CASES = [
     (2, 3, 2, 3, 1, False),
     (2, 17, 35, 259, 1, True),
     (1, 6, 100, 259, 6, True),
+    (2, 45, 45, 259, 47, False),
+    (2, 65, 65, 259, 47, False),
+    (1, 65, 65, 259, 47, True),
 ]
 
 
@@ -55,13 +62,14 @@ CASES = [
 def test_kernel_matches_plain_on_card(dtype, case):
     """Exact against the plain version: unaligned strips and rows, narrow
     C (a 16-byte store spans pixels), W=1 and 2 (every column clamps),
-    H=1, shifts beyond the margin, and rows far apart (slot eviction)."""
+    H=1, shifts beyond the margin, rows far apart (slot eviction), and the
+    extrapolated grids' widths with their wide margins."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     B, H, W, C, margin, far = case
     rng = np.random.RandomState(sum(case[:5]))
     x = torch.tensor(rng.randn(B, H, W, C), dtype=dtype).cuda()
-    tabs = _random_tables(rng, B, H, 9, far)
+    tabs = _random_tables(rng, B, H, 9, far, shift=max(9, margin + 3))
     if W * C % 2 and B * 9 * H >= 8:
         size = x.element_size()
         starts = {(s * W * C * size) % 16 for s in range(B * 9 * H)}

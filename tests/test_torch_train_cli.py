@@ -169,6 +169,13 @@ def test_failure_appends_to_error_log(run_dir, monkeypatch):
 @pytest.mark.parametrize("flag", [["--baseline-ckpt", "b.ckpt"],
                                   ["--num-processes", "2"]])
 def test_unported_flags_raise(flag):
+    """Multi-process training (A12) raises; --baseline-ckpt is ported, and
+    a checkpoint that is not there raises naming it, before anything
+    else runs."""
+    if flag[0] == "--baseline-ckpt":
+        with pytest.raises(FileNotFoundError, match="b.ckpt"):
+            main(["tiny.yaml", *flag, "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         main(["tiny.yaml", *flag, "--device", "cpu"])
 
