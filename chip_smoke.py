@@ -82,6 +82,21 @@ Phases (any failure exits non-zero; nothing is caught):
              plain step beside phase 7's, the prefetch queue's waits of
              the first loop call apart from the later ones, the tap
              sampler's launches against the count printed beforehand
+  11. fid   inception (features, logits) and LPIPS on cuda against cpu,
+             and TF32's effect on the features; the training CLI on
+             configs/model/spgan_run30k_bf16.yaml (batch 16, bf16,
+             n_fid_sample cut from 2048 to 512, calc_fid and
+             calc_fid_ext2) with an .spr of
+             64 synthetic panoramas, eval and fid_ext2 ticks of 2 and 4
+             iterations, SPGAN_TPU_INCEPTION=random: two FID and two
+             EXT2-FID ticks (the second on the cached real statistics),
+             each split into real stats / generation / features / host
+             Frechet, its tap-sampler launches (4 a batch of the FID
+             forward, none in EXT2) and peak memory; best_fid.pt,
+             best_fid_ext2.pt and best.json; the inference CLI renders 16
+             panoramas from best_fid.pt (48 grouped-kernel launches); the
+             offline eval CLI (fid, stats, fid from the .pkl, is, lpips)
+             on two .npy sets of 256 synthetic 256x768 panoramas
 Then prints the kernels JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -1034,8 +1049,8 @@ def _run_train_cli(argv, pipelines, want, make=None):
     orig = loop.make_train_pipeline
     make = make or orig
 
-    def timed(cfg, seed=0):
-        pipe = make(cfg, seed=seed)
+    def timed(cfg, seed=0, **kw):
+        pipe = make(cfg, seed=seed, **kw)
         if not isinstance(pipe, want):
             raise AssertionError(f"the config took {type(pipe)}, want "
                                  f"{want}")
@@ -1809,6 +1824,306 @@ def phase_train_options(card_str, plain_step_ms):
             "ext_max_abs_err": ext_err, "render_per_batch": per_batch,
             "loader_ms": loader_ms}
 
+FID_ITERS = 4        # the FID CLI call: eval and fid_ext2 ticks at 2 and 4
+FID_TICK = 2
+# spgan_run30k_bf16.yaml ships n_fid_sample 2048; phase 11 alone then
+# takes ~260 s on an H100 (two sqrtm-bound FID and two generation-bound
+# EXT2 ticks), so the whole script would pass ~560 s: cut to a quarter
+N_FID_SAMPLE = 512
+CLI_SET = 256        # images in each offline-CLI set (256x768 panoramas)
+
+
+class FIDTickRecorder:
+    """While entered, each TrainFID call (a FID or EXT2-FID tick) is
+    synchronised before and after and recorded in .ticks: its kind,
+    value, the evaluator's own split (.ms), the wall ms, the tap-sampler
+    launches inside it and the peak device memory."""
+
+    def __enter__(self):
+        from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+        from spgan_tpu_torch.train import evals
+
+        self.cls, self.ticks = evals.TrainFID, []
+        orig = self.orig = self.cls.__call__
+
+        def recorded(obj, params, gen, n_sample=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = ss.sphere_sample_taps.launches
+            t0 = time.perf_counter()
+            val = orig(obj, params, gen, n_sample)
+            torch.cuda.synchronize()
+            self.ticks.append({
+                "kind": "fid_ext2" if obj.ext2 else "fid", "value": val,
+                "ms": dict(obj.ms),
+                "wall_ms": (time.perf_counter() - t0) * 1e3,
+                "b3": ss.sphere_sample_taps.launches - n0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+            return val
+
+        self.cls.__call__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def _eval_nets_on_card(card_str):
+    """Inception (features, logits) and LPIPS on cuda against the same
+    networks on cpu at batch 4 (float32, TF32 off; the 101^2 patch and the
+    256x768 panorama, which the resize shrinks); then how far TF32 moves
+    the features of 64 patches."""
+    from spgan_tpu_torch.evalkit.fid import tf32_off
+    from spgan_tpu_torch.evalkit.inception import random_inception
+    from spgan_tpu_torch.evalkit.lpips import random_lpips
+
+    rng = np.random.RandomState(12)
+    errs = {}
+    with torch.no_grad(), tf32_off():
+        for with_logits in (False, True):
+            gpu = random_inception(with_logits=with_logits, device="cuda")
+            cpu = random_inception(with_logits=with_logits, device="cpu")
+            for h, w in ((101, 101), (256, 768)):
+                x = torch.as_tensor(rng.uniform(-1, 1, (4, h, w, 3)).astype(
+                    np.float32))
+                ref = cpu(x)
+                name = (f"inception {'logits' if with_logits else 'features'}"
+                        f" {h}x{w}")
+                errs[name] = check_close(name, gpu(x.cuda()).cpu(), ref,
+                                         1e-4 * float(ref.abs().max()), 1e-3)
+        gpu, cpu = random_lpips(device="cuda"), random_lpips(device="cpu")
+        x, y = (torch.as_tensor(rng.uniform(-1, 1, (4, 256, 768, 3)).astype(
+            np.float32)) for _ in range(2))
+        ref = cpu(x, y)
+        errs["lpips 256x768"] = check_close(
+            "lpips", gpu(x.cuda(), y.cuda()).cpu(), ref,
+            1e-4 * float(ref.abs().max()), 1e-3)
+    print(f"[fid] inception and LPIPS, cuda vs cpu at batch 4 (float32, "
+          f"TF32 off; limit 1e-4 of the largest value + 1e-3 rel): max abs "
+          f"err {json.dumps(errs)}")
+
+    net = random_inception(device="cuda")
+    x = torch.as_tensor(rng.uniform(-1, 1, (64, 101, 101, 3)).astype(
+        np.float32)).cuda()
+    with torch.no_grad():
+        with tf32_off():
+            off = net(x)
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            on = net(x)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+    d = (on - off).abs()
+    rel = float(d.max() / off.abs().max())
+    print(f"[fid] {card_str}: TF32 on vs off, pool3 features of 64 random "
+          f"101^2 patches (random inception): max abs diff "
+          f"{float(d.max()):.3e} ({rel:.3e} of the largest feature), mean "
+          f"abs diff {float(d.mean()):.3e} (features' mean abs "
+          f"{float(off.abs().mean()):.3e})")
+    return max(errs.values()), rel
+
+
+def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
+    """FID at full width.  The training CLI in process on
+    configs/model/spgan_run30k_bf16.yaml (batch 16, bf16 training,
+    calc_fid and calc_fid_ext2 on), edited only in its data file (an .spr
+    of synthetic panoramas), its eval and fid_ext2 ticks and n_fid_sample
+    (the shipped 2048 runs as phase_fid(card(), 2048)), run FID_ITERS
+    iterations with SPGAN_TPU_INCEPTION=random: each tick fires twice,
+    the second on a warm .fid-cache.  Then
+    the inference CLI renders 16 panoramas from best_fid.pt, and the
+    offline eval CLI runs fid, stats, fid from the .pkl, is and lpips on
+    two .npy sets of synthetic 256x768 panoramas."""
+    import re
+    import shutil
+
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.data.native_loader import write_records
+    from spgan_tpu_torch.data.pipeline import (NativeTrainPipeline,
+                                               SyntheticPanoramas)
+    from spgan_tpu_torch.evalkit.__main__ import main as eval_main
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+    from spgan_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    net_err, tf32_rel = _eval_nets_on_card(card_str)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    shipped = os.path.join(repo, "configs", "model",
+                           "spgan_run30k_bf16.yaml")
+    old, old_env = os.getcwd(), os.environ.get("SPGAN_TPU_INCEPTION")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fid_")
+    try:
+        os.chdir(tmp)
+        src = SyntheticPanoramas((768, 256), n=N_PANORAMAS, seed=7)
+        write_records("train.spr", np.stack([src[i]
+                                             for i in range(len(src))]))
+        edits = {"data_params": {"folder": os.path.abspath("train.spr")},
+                 "log_params": {"eval_tick": FID_TICK,
+                                "fid_ext2_tick": FID_TICK},
+                 "test_params": {"n_fid_sample": n_fid_sample}}
+        yaml_path = _edited_yaml(shipped, "spgan_run30k_bf16.yaml", edits)
+        cfg, ref = load_config(yaml_path), load_config(shipped)
+        ref.data_params.folder = cfg.data_params.folder
+        ref.log_params.eval_tick = ref.log_params.fid_ext2_tick = FID_TICK
+        ref.test_params.n_fid_sample = n_fid_sample
+        tp, tep = cfg.train_params, cfg.test_params
+        if cfg != ref or (tp.batch_size, tp.compute_dtype, tp.ss_n_layers,
+                          tp.local_latent_dim, tep.calc_fid,
+                          tep.calc_fid_ext2) != (16, "bfloat16", 4, 256,
+                                                 True, True):
+            raise AssertionError("the FID yaml is not the shipped "
+                                 "spgan_run30k_bf16.yaml at full width "
+                                 "beyond its data file, ticks and "
+                                 "n_fid_sample")
+        n_batches = n_fid_sample // tp.batch_size
+        want_tick = {"fid": tp.ss_n_layers * n_batches, "fid_ext2": 0}
+        want_train = 2 * tp.ss_n_layers * FID_ITERS
+        print(f"[fid] spgan_run30k_bf16.yaml edited: {json.dumps(edits)}; "
+              f"--max-iters {FID_ITERS}; SPGAN_TPU_INCEPTION=random; "
+              f"expected tap-sampler launches: {want_tick['fid']} a FID tick "
+              f"({tp.ss_n_layers} a batch x {n_batches} batches of "
+              f"{tp.batch_size}), 0 an EXT2 tick (the patch grids), "
+              f"{want_train} over the {FID_ITERS} training iterations")
+
+        os.environ["SPGAN_TPU_INCEPTION"] = "random"
+        sk.fused_sphere_conv_grouped.launches = 0
+        sk.fused_sphere_conv.launches = 0
+        ss.sphere_sample_taps.launches = 0
+        pipes = []
+        t0 = time.perf_counter()
+        with FIDTickRecorder() as rec:
+            state, out = _run_train_cli([yaml_path, "--max-iters",
+                                         str(FID_ITERS)], pipes,
+                                        NativeTrainPipeline)
+        wall = time.perf_counter() - t0
+        launches = {
+            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+            "fused_sphere_conv": sk.fused_sphere_conv.launches,
+            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        kinds = [t["kind"] for t in rec.ticks]
+        ticks = {k: [t for t in rec.ticks if t["kind"] == k]
+                 for k in ("fid", "fid_ext2")}
+        if state.step != FID_ITERS or kinds != ["fid", "fid_ext2"] * 2 or \
+                len(pipes) != 2 or pipes[1].inner._ld._full is None:
+            raise AssertionError(f"FID call: step {state.step}, ticks "
+                                 f"{kinds}, {len(pipes)} pipelines")
+        for k, ts in ticks.items():
+            for t in ts:
+                if t["b3"] != want_tick[k] or not math.isfinite(t["value"]) \
+                        or t["value"] <= 0:
+                    raise AssertionError(f"{k} tick: {t}")
+            # the second tick reads the real statistics from the cache
+            if not ts[1]["ms"]["real_stats"] < 0.1 * ts[0]["ms"]["real_stats"]:
+                raise AssertionError(f"{k}: the second tick's real stats "
+                                     f"took {ts[1]['ms']['real_stats']} ms")
+        if launches != {"fused_sphere_conv_grouped": 0,
+                        "fused_sphere_conv": 0,
+                        "sphere_sample_taps": want_train + sum(
+                            want_tick[k] for k in kinds)}:
+            raise AssertionError(f"FID call launches {launches}")
+        printed = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^\[train\] iter \d+: (metric/fid(?:_ext2)?) (\S+)", out, re.M)}
+        if set(printed) != {"metric/fid", "metric/fid_ext2"} or \
+                "RANDOM inception weights" not in out:
+            raise AssertionError("FID scalars or the random-weights warning "
+                                 "missing from the log")
+        ckpt = os.path.join("logs", "spgan_run30k_bf16", "ckpt")
+        best = json.load(open(os.path.join(ckpt, "best.json")))
+        files = sorted(os.listdir(ckpt))
+        if not {"best.json", "best_fid.pt", "best_fid_ext2.pt"} <= set(files) \
+                or CheckpointManager(ckpt).steps() or \
+                best["best_fid"] != min(t["value"] for t in ticks["fid"]) or \
+                best["best_ext2_fid"] != min(t["value"]
+                                             for t in ticks["fid_ext2"]):
+            raise AssertionError(f"FID snapshots {files}, best.json {best}")
+        cache = sorted(os.listdir(".fid-cache"))
+        for t in rec.ticks:
+            print(f"[fid] {card_str}: {t['kind']} tick ({n_fid_sample} "
+                  f"samples, batch {tp.batch_size}, float32 EMA weights): "
+                  f"value {t['value']:.6g} (random inception: meaningless); "
+                  f"ms real stats {t['ms']['real_stats']:.1f}, generation "
+                  f"{t['ms']['generate']:.1f}, inception features "
+                  f"{t['ms']['features']:.1f}, host Frechet (stats + 2048^2 "
+                  f"sqrtm) {t['ms']['frechet']:.1f}; whole tick "
+                  f"{t['wall_ms']:.1f} ms; {t['b3']} tap-sampler launches; "
+                  f"peak device memory {t['peak_gib']:.2f} GiB")
+        print(f"[fid] FID CLI call: {FID_ITERS} iterations in {wall:.1f} s "
+              f"wall; {launches['sphere_sample_taps']} tap-sampler launches "
+              f"({want_train} training + the ticks'); snapshots {files}; "
+              f"best.json {json.dumps(best)}; .fid-cache {cache}")
+
+        # the inference CLI from the best-FID snapshot
+        m, per_batch = run_cli(
+            ["--model-config", yaml_path, "--test-config",
+             os.path.join(repo, "configs", "test", "spgan_384x768.yaml"),
+             "--ckpt", os.path.join(ckpt, "best_fid.pt"), "--num-gen", "16",
+             "--save-root", "render"], want_per_batch=48)
+        pngs = sorted(f for f in os.listdir("render") if f.endswith(".png"))
+        sizes = {png_size(os.path.join("render", f)) for f in pngs}
+        if len(pngs) != 16 or sizes != {(768, 384)}:
+            raise AssertionError(f"infer CLI wrote {len(pngs)} PNGs of "
+                                 f"{sizes} from best_fid.pt")
+        print(f"[fid] infer CLI from best_fid.pt: 16 PNGs of 768x384, "
+              f"{per_batch} grouped-kernel launches in the batch")
+        del m
+
+        # the offline eval CLI on two sets of 256x768 panoramas
+        del os.environ["SPGAN_TPU_INCEPTION"]
+        for name, seed in (("a", 21), ("b", 22)):
+            pano = SyntheticPanoramas((768, 256), n=CLI_SET, seed=seed)
+            np.save(f"{name}.npy", np.stack([pano[i]
+                                            for i in range(CLI_SET)]))
+        secs = {}
+
+        def cli(label, *argv):
+            t = time.perf_counter()
+            res = eval_main(list(argv) + ["--batch", "32",
+                                          "--allow-random-weights"])
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t
+            return res
+
+        same = cli("fid self", "fid", "a.npy", "a.npy")
+        stats = cli("stats", "stats", "b.npy", "--out", "b.pkl")
+        dist = cli("fid from pkl", "fid", "b.pkl", "a.npy")
+        score = cli("is", "is", "a.npy")
+        lp = cli("lpips", "lpips", "a.npy", "b.npy")
+        if not (abs(same["value"]) < 1e-3 and dist["value"] > 0
+                and stats["n"] == CLI_SET and dist["n_a"] == CLI_SET
+                and score["value"] >= 1 - 1e-5 and lp["value"] > 0
+                and all("WARNING" in r for r in (same, stats, dist, score,
+                                                 lp))):
+            raise AssertionError(f"eval CLI: fid self {same}, from .pkl "
+                                 f"{dist}, is {score}, lpips {lp}")
+        print(f"[fid] {card_str}: offline eval CLI on two sets of {CLI_SET} "
+              f"synthetic 256x768 panoramas (random networks, batch 32): "
+              f"fid a vs a {same['value']:.3e} ({secs['fid self']:.2f} s, "
+              f"{2 * CLI_SET / secs['fid self']:.1f} images/s with its "
+              f"sqrtm); stats of b {secs['stats']:.2f} s "
+              f"({CLI_SET / secs['stats']:.1f} images/s); fid b.pkl vs a "
+              f"{dist['value']:.6g} ({secs['fid from pkl']:.2f} s); is "
+              f"{score['value']:.4f} ({secs['is']:.2f} s, "
+              f"{CLI_SET / secs['is']:.1f} images/s); lpips a vs b "
+              f"{lp['value']:.4f} ({secs['lpips']:.2f} s, "
+              f"{CLI_SET / secs['lpips']:.1f} pairs/s)")
+    finally:
+        os.chdir(old)
+        shutil.rmtree(tmp)
+        if old_env is None:
+            os.environ.pop("SPGAN_TPU_INCEPTION", None)
+        else:
+            os.environ["SPGAN_TPU_INCEPTION"] = old_env
+    print(f"[fid] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"tick_launches": {k: [t["b3"] for t in ts]
+                              for k, ts in ticks.items()},
+            "train_launches": want_train, "net_max_abs_err": net_err,
+            "tf32_rel": tf32_rel, "render_per_batch": per_batch}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1834,6 +2149,7 @@ def main():
     train_cli = phase_train_cli(card_str, plain_step_ms)
     phase_train_cli_synthetic(card_str, plain_step_ms, train_cli["plain_ms"])
     options = phase_train_options(card_str, plain_step_ms)
+    fid = phase_fid(card_str)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -1868,6 +2184,9 @@ def main():
                 train_cli["render_per_batch"]
             line[-1]["train_options_render_launches_per_batch"] = \
                 options["render_per_batch"]
+            # rendering phase 11's best_fid.pt snapshot
+            line[-1]["fid_render_launches_per_batch"] = \
+                fid["render_per_batch"]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -1884,6 +2203,11 @@ def main():
         "train_options_launches": options["sphere_sample_taps"],
         # at the extrapolated grids' shapes (W 45 and 65), f32 and bf16
         "ext_max_abs_err": options["ext_max_abs_err"],
+        # in each of phase 11's FID and EXT2-FID ticks (spgan_run30k_bf16
+        # .yaml, n_fid_sample generations of batch 16), and over its
+        # training iterations
+        "fid_tick_launches": fid["tick_launches"],
+        "fid_train_launches": fid["train_launches"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)

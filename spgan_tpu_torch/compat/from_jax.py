@@ -116,3 +116,34 @@ def train_state_from_jax(state: Any, device=None):
         opt_g=adam(state.opt_g), opt_d=adam(state.opt_d),
         mean_path_length=torch.tensor(
             np.asarray(state.mean_path_length, np.float32)).to(dev))
+
+
+def inception_from_jax(params: Mapping) -> dict:
+    """A pytorch-fid-layout state dict (``evalkit.inception``'s
+    InceptionV3FID loads it) of the JAX package's InceptionV3FID params:
+    each {w (HWIO), bn_g, bn_b, bn_m, bn_v} leaf dict becomes
+    ``<prefix>.conv.weight`` (OIHW) and ``<prefix>.bn.weight|bias|
+    running_mean|running_var``; fc {w (in, out), b} becomes ``fc.weight``
+    (out, in) and ``fc.bias``."""
+    sd = {}
+
+    def walk(node, prefix):
+        if "w" in node and "bn_g" in node:
+            sd[f"{prefix}.conv.weight"] = torch.tensor(
+                np.asarray(node["w"], np.float32).transpose(3, 2, 0, 1))
+            for src, dst in (("bn_g", "weight"), ("bn_b", "bias"),
+                             ("bn_m", "running_mean"),
+                             ("bn_v", "running_var")):
+                sd[f"{prefix}.bn.{dst}"] = torch.tensor(
+                    np.asarray(node[src], np.float32))
+            return
+        for k, v in node.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk({k: v for k, v in params.items() if k != "fc"}, "")
+    if "fc" in params:
+        sd["fc.weight"] = torch.tensor(
+            np.asarray(params["fc"]["w"], np.float32).T.copy())
+        sd["fc.bias"] = torch.tensor(np.asarray(params["fc"]["b"], np.float32))
+    return sd
+

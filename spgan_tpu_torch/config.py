@@ -123,8 +123,10 @@ class LogParams:
 
 @dataclass
 class TestParams:
-    # FID is not ported (ROADMAP A11): the training loop says so and runs
-    # without it, as the JAX package does without Inception weights
+    # FID every eval_tick (and EXT2-FID every fid_ext2_tick) over
+    # n_fid_sample generations, when $SPGAN_TPU_INCEPTION names the
+    # inception weights (train/evals.py); without them the loop says so
+    # and runs without FID, as the JAX package does
     calc_fid: bool = True
     calc_fid_ext2: bool = True
     n_fid_sample: int = 10000

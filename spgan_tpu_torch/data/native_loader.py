@@ -115,11 +115,12 @@ def write_records(path: str, images: np.ndarray) -> None:
 class NativeRecordLoader:
     """Batches of an SPR1 file made in C++, one call per batch: center
     square crop, one bilinear resize to full_size, random flip, random
-    patch crop, [-1, 1].  Batch k (from 1) draws from seed + k.  (The
-    library can also return the full images, for FID: not ported, A11.)"""
+    patch crop, [-1, 1].  Batch k (from 1) draws from seed + k.
+    include_full adds "full", the flipped full_size images the patches
+    were cropped from (the EXT2-FID's real images)."""
 
     def __init__(self, path: str, full_size: int, patch_size: int,
-                 batch: int, seed: int = 0):
+                 batch: int, seed: int = 0, include_full: bool = False):
         if not 0 < patch_size <= full_size or batch <= 0:
             raise ValueError(f"patch_size {patch_size}, full_size "
                              f"{full_size}, batch {batch}")
@@ -133,6 +134,8 @@ class NativeRecordLoader:
         self.seed = seed
         self._patch = np.empty((batch, patch_size, patch_size, 3), np.float32)
         self._ac = np.empty((batch, 3), np.float32)
+        self._full = (np.empty((batch, full_size, full_size, 3), np.float32)
+                      if include_full else None)
 
     def __len__(self) -> int:
         return int(self.lib.spr_size(self.handle))
@@ -141,10 +144,14 @@ class NativeRecordLoader:
         self.seed = (self.seed + 1) % 2 ** 64
         rc = self.lib.spr_make_batch(
             self.handle, self.batch, self.full_size, self.patch_size,
-            self.seed, self._patch.ctypes.data, self._ac.ctypes.data, None)
+            self.seed, self._patch.ctypes.data, self._ac.ctypes.data,
+            None if self._full is None else self._full.ctypes.data)
         if rc != 0:
             raise RuntimeError(f"spr_make_batch failed (rc {rc})")
-        return {"patch": self._patch.copy(), "ac_coords": self._ac.copy()}
+        out = {"patch": self._patch.copy(), "ac_coords": self._ac.copy()}
+        if self._full is not None:
+            out["full"] = self._full.copy()
+        return out
 
     def close(self) -> None:
         if self.handle:

@@ -16,7 +16,9 @@ draw order, square-resizing with cv2's Lanczos4 arithmetic
 extra_pre_resize (the JAX package's loader does the same).
 
 Batches are numpy: {"patch": (B,P,P,3) float32 in [-1,1], "ac_coords":
-(B,3) float32}.  The training loop moves them to the device.
+(B,3) float32}, and with include_full (the EXT2-FID's real images)
+"full": (B,S,S,3), the flipped full_size image the patch was cropped
+from, in [-1,1].  The training loop moves them to the device.
 """
 from __future__ import annotations
 
@@ -181,11 +183,14 @@ class TrainPipeline:
     image index, the square resize to extra_pre_resize then to full_size
     (two Lanczos stages, as the reference), a random flip and the patch
     crop, all drawn from one np.random.RandomState(seed) in the JAX
-    package's order.  close() stops the thread."""
+    package's order; include_full adds the full images.  close() stops
+    the thread."""
 
-    def __init__(self, cfg: Config, seed: int = 0):
+    def __init__(self, cfg: Config, seed: int = 0,
+                 include_full: bool = False):
         tp = cfg.train_params
         self.tp = tp
+        self.include_full = include_full
         self.n, self.load = make_data_source(cfg)
         self.cropper = PatchCropper(tp.full_size, tp.patch_size,
                                     tp.coord_num_dir)
@@ -202,13 +207,16 @@ class TrainPipeline:
         img = center_square_resize(img, self.tp.full_size)
         if rng.rand() < 0.5:
             img = img[:, ::-1]
-        return self.cropper(img, rng)
+        return (img, *self.cropper(img, rng))
 
     def make_batch(self, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
-        patches, acs = zip(*(self._sample_one(rng)
-                             for _ in range(self.tp.batch_size)))
-        return {"patch": np.stack(patches).astype(np.float32) / 127.5 - 1.0,
-                "ac_coords": np.stack(acs).astype(np.float32)}
+        fulls, patches, acs = zip(*(self._sample_one(rng)
+                                    for _ in range(self.tp.batch_size)))
+        out = {"patch": np.stack(patches).astype(np.float32) / 127.5 - 1.0,
+               "ac_coords": np.stack(acs).astype(np.float32)}
+        if self.include_full:
+            out["full"] = np.stack(fulls).astype(np.float32) / 127.5 - 1.0
+        return out
 
     def _worker(self):
         while not self._stop.is_set():
@@ -243,11 +251,13 @@ class NativeTrainPipeline:
     """Training batches straight from the C++ record loader (an .spr
     file), made on the calling thread."""
 
-    def __init__(self, cfg: Config, seed: int = 0):
+    def __init__(self, cfg: Config, seed: int = 0,
+                 include_full: bool = False):
         tp = cfg.train_params
         self._ld = NativeRecordLoader(
             cfg.data_params.folder, full_size=tp.full_size,
-            patch_size=tp.patch_size, batch=tp.batch_size, seed=seed)
+            patch_size=tp.patch_size, batch=tp.batch_size, seed=seed,
+            include_full=include_full)
 
     def __iter__(self):
         return self
@@ -259,11 +269,12 @@ class NativeTrainPipeline:
         self._ld.close()
 
 
-def make_train_pipeline(cfg: Config, seed: int = 0):
+def make_train_pipeline(cfg: Config, seed: int = 0,
+                        include_full: bool = False):
     """The native loader for an .spr source (source "spr", or a folder
-    that ends in .spr), TrainPipeline otherwise.  A loader that cannot be
-    built raises."""
+    that ends in .spr), TrainPipeline otherwise; include_full adds the
+    full images to each batch.  A loader that cannot be built raises."""
     dp = cfg.data_params
     if dp.source == "spr" or (dp.folder or "").endswith(".spr"):
-        return NativeTrainPipeline(cfg, seed=seed)
-    return TrainPipeline(cfg, seed=seed)
+        return NativeTrainPipeline(cfg, seed=seed, include_full=include_full)
+    return TrainPipeline(cfg, seed=seed, include_full=include_full)

@@ -4,12 +4,14 @@ spgan_tpu/train/checkpoint.py, which uses Orbax), on ``torch.save``.
 A checkpoint directory holds one file per step, ``<step>.pt``, written to
 a temporary name, synced and renamed into place, so a kill mid-write
 leaves the earlier checkpoints intact (a leftover temporary file is
-ignored).  The newest ``max_to_keep`` are kept.  Each file holds a format
-tag, the step, the PPL running mean and every tensor of the TrainState on
-the CPU under its flat ``a/b/0/c`` key: ``params_g/...``,
-``params_d/...``, ``params_g_ema/...`` and ``opt_g|opt_d/mu|nu|count/...``
-(an SGD state has no tensors).
-Files are read back with ``torch.load(weights_only=True)``.
+ignored).  The newest ``max_to_keep`` are kept; ``save_best`` writes
+named snapshots (``best_fid.pt``) beside them, which the rolling deletion
+leaves alone.  Each file holds a format tag, the step, the PPL running
+mean and every tensor of the TrainState on the CPU under its flat
+``a/b/0/c`` key: ``params_g/...``, ``params_d/...``,
+``params_g_ema/...`` and ``opt_g|opt_d/mu|nu|count/...`` (an SGD state
+has no tensors).  Files are read back with
+``torch.load(weights_only=True)``.
 """
 from __future__ import annotations
 
@@ -70,6 +72,38 @@ def is_checkpoint_payload(obj: Any) -> bool:
     return isinstance(obj, dict) and obj.get("format") == FORMAT
 
 
+def write_state(path: str, state: TrainState) -> None:
+    """`state` as a checkpoint file at `path`: written to a temporary file
+    beside it, synced, then renamed into place."""
+    payload = {"format": FORMAT, "step": int(state.step),
+               "mean_path_length": state.mean_path_length.detach().cpu(),
+               "tensors": {k: v.detach().cpu()
+                           for k, v in state_tensors(state).items()}}
+    fd, tmp = tempfile.mkstemp(prefix=f".{os.path.basename(path)}.",
+                               suffix=".tmp", dir=os.path.dirname(path))
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def save_best(ckpt_root: str, name: str, state: TrainState) -> str:
+    """`state` as <ckpt_root>/<name>.pt (best_fid, best_fid_ext2,
+    best_fid_ext2_<it>), in the rolling checkpoints' format: steps()
+    does not list it and the rolling deletion never removes it, and
+    ``python -m spgan_tpu_torch.infer --ckpt <ckpt_root>/<name>.pt``
+    renders its EMA generator.  Returns the path."""
+    path = os.path.join(os.path.abspath(ckpt_root), f"{name}.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_state(path, state)
+    return path
+
+
 class CheckpointManager:
     def __init__(self, ckpt_dir: str, max_to_keep: int = 2):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
@@ -92,21 +126,7 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState) -> None:
         """Write `state` as the checkpoint of `step` (the loop passes
         state.step), then drop all but the newest max_to_keep."""
-        payload = {"format": FORMAT, "step": int(state.step),
-                   "mean_path_length": state.mean_path_length.detach().cpu(),
-                   "tensors": {k: v.detach().cpu()
-                               for k, v in state_tensors(state).items()}}
-        fd, tmp = tempfile.mkstemp(prefix=f".{step}.", suffix=".tmp",
-                                   dir=self.ckpt_dir)
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(payload, f)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, self.path(step))
-        except BaseException:
-            os.unlink(tmp)
-            raise
+        write_state(self.path(step), state)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
 

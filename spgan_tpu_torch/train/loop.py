@@ -9,6 +9,13 @@
     only; with no_ext false also the extrapolated grids of 2x and 4x
     wider latents), rolling checkpoints every save_tick, auto-resume from
     the newest;
+  * FID every eval_tick and EXT2-FID every fid_ext2_tick with
+    test_params.calc_fid (and calc_fid_ext2), when $SPGAN_TPU_INCEPTION
+    names the inception weights (or is "random"; without it FID is off
+    with a warning, as in the JAX package): scalars metric/fid and
+    metric/fid_ext2, snapshots best_fid.pt, best_fid_ext2.pt and, past
+    iteration 600,000, best_fid_ext2_<it>.pt beside the checkpoints, the
+    best values in ckpt/best.json (read back on resume);
   * baseline transfer: an InfinityGAN baseline checkpoint's generator
     weights are loaded before the first step (compat/baseline.py); with
     train_params.freeze they and the whole discriminator stay fixed;
@@ -21,10 +28,15 @@ a resumed run's steps draw as an uninterrupted run's would (the JAX
 package folds the step into its key).  The data pipeline, however, is
 rebuilt from `seed` on resume and reads the data order from its start
 again, as in the JAX package: a resumed run sees other batches than an
-uninterrupted one.  FID (eval_tick) is not ported (ROADMAP A11).
+uninterrupted one.  The FID ticks draw from streams of their own, (seed
++ 2, i) and (seed + 3, i); the plain FID's real images come from the
+training pipeline (its first call takes n_fid_sample / batch_size
+batches of the stream, as in the JAX package), EXT2's from a second
+pipeline seeded seed + 7 with the full images.
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 import traceback
@@ -39,7 +51,7 @@ from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.models.latents import LatentSampler
 from spgan_tpu_torch.ops.spatial import out_size_chain
-from spgan_tpu_torch.train.checkpoint import CheckpointManager
+from spgan_tpu_torch.train.checkpoint import CheckpointManager, save_best
 from spgan_tpu_torch.train.state import TrainState, create_train_state
 from spgan_tpu_torch.train.step import _DTYPES, make_train_step
 from spgan_tpu_torch.tree import tree_leaves, tree_map
@@ -210,6 +222,14 @@ def _log_tick(writer, it: int, total: int, scalars: dict, dt: float,
                           torch.cuda.max_memory_allocated(dev) / 2 ** 20, it)
 
 
+def _log_metric(writer, tag: str, value: float, it: int,
+                ms: Dict[str, float]) -> None:
+    print(f"[train] iter {it}: {tag} {value:.6g} (ms: "
+          f"{ {k: round(v, 1) for k, v in ms.items()} })", flush=True)
+    if writer is not None:
+        writer.add_scalar(tag, value, it)
+
+
 def load_baseline(cfg: Config, g: Generator, state: TrainState,
                   path: str):
     """(state with the baseline's generator weights in params_g and
@@ -227,6 +247,53 @@ def load_baseline(cfg: Config, g: Generator, state: TrainState,
     print(f" [*] Baseline transfer: {sum(tree_leaves(mask))} tensors "
           f"loaded{' (frozen)' if freeze else ''}")
     return state, (mask if freeze else None)
+
+
+BEST_KEYS = ("best_fid", "best_ext2_fid", "best_ext2_fid_later")
+
+
+def read_best(path: str) -> Dict[str, float]:
+    """The best FID values of ckpt/best.json, inf where absent; a missing
+    or truncated file (a kill mid-write) reads as none."""
+    best = dict.fromkeys(BEST_KEYS, float("inf"))
+    try:
+        with open(path) as f:
+            saved = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        saved = {}
+    best.update({k: float(saved[k]) for k in BEST_KEYS if k in saved})
+    return best
+
+
+def write_best(path: str, best: Dict[str, float]) -> None:
+    """best.json written to a temporary file and renamed into place."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(best, f)
+    os.replace(tmp, path)
+
+
+def make_fid_evals(cfg: Config, g: Generator, pipeline, seed: int, device):
+    """(TrainFID on the training pipeline, TrainFID ext2 on a second
+    pipeline of full images seeded seed + 7, or None) with
+    test_params.calc_fid (ext2 with calc_fid_ext2), or (None, None) when
+    calc_fid is off or there are no inception weights (said loudly)."""
+    tp = cfg.test_params
+    if not tp.calc_fid:
+        return None, None
+    from spgan_tpu_torch.train.evals import TrainFID
+
+    fid = TrainFID(cfg, g, pipeline, device=device)
+    if not fid.available:
+        print(" [!] Inception weights not found (SPGAN_TPU_INCEPTION); "
+              "FID evaluation disabled.")
+        return None, None
+    if not tp.calc_fid_ext2:
+        return fid, None
+    return fid, TrainFID(cfg, g, make_train_pipeline(cfg, seed=seed + 7,
+                                                     include_full=True),
+                         inception_params=fid.inception_params, ext2=True,
+                         device=device)
 
 
 def train(cfg: Config, debug: bool = False, seed: int = 0,
@@ -259,9 +326,6 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
         writer = _open_writer(exp_root)
         ckpt_mgr = CheckpointManager(os.path.join(exp_root, "ckpt"))
         backup_files(os.getcwd(), os.path.join(exp_root, "codes"))
-        if cfg.test_params.calc_fid:
-            print(" [!] FID is not ported (ROADMAP A11); FID evaluation "
-                  "disabled.")
 
     g = import_func(tp.g_arch).from_config(cfg)
     d = import_func(tp.d_arch).from_config(cfg)
@@ -281,6 +345,16 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
     grids = (make_image_grids(cfg, g, seed, dev) if writer is not None
              else None)
     pipeline = make_train_pipeline(cfg, seed=seed)
+    fid_eval = fid_ext2_eval = None
+    best_path = (None if debug
+                 else os.path.join(ckpt_mgr.ckpt_dir, "best.json"))
+    best = None if debug else read_best(best_path)
+
+    def snapshot(name, key, value):
+        """A better FID: the snapshot `name` and best.json."""
+        best[key] = value
+        save_best(ckpt_mgr.ckpt_dir, name, state)
+        write_best(best_path, best)
 
     total = tp.iter if max_iters is None else min(tp.iter, max_iters)
     reg_carry: Dict[str, torch.Tensor] = {}
@@ -296,6 +370,9 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
         return torch.as_tensor(batch[key]).to(dev)
 
     try:
+        if not debug:
+            fid_eval, fid_ext2_eval = make_fid_evals(cfg, g, pipeline, seed,
+                                                     dev)
         while it < total:
             if (profile_dir is not None and prof is None
                     and prof_start is None
@@ -354,6 +431,24 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                     writer.add_image(tag, grid, it, dataformats="HWC")
             if tick(lp.save_tick) and ckpt_mgr is not None:
                 ckpt_mgr.save(it, state)
+            if fid_eval is not None and tick(lp.eval_tick):
+                fid = fid_eval(state.params_g_ema,
+                               iteration_generator(seed + 2, it, dev))
+                _log_metric(writer, "metric/fid", fid, it, fid_eval.ms)
+                if fid < best["best_fid"]:
+                    snapshot("best_fid", "best_fid", fid)
+            if fid_ext2_eval is not None and tick(lp.fid_ext2_tick):
+                fid2 = fid_ext2_eval(state.params_g_ema,
+                                     iteration_generator(seed + 3, it, dev))
+                _log_metric(writer, "metric/fid_ext2", fid2, it,
+                            fid_ext2_eval.ms)
+                if fid2 < best["best_ext2_fid"]:
+                    snapshot("best_fid_ext2", "best_ext2_fid", fid2)
+                # the late-training per-iteration snapshot (reference
+                # train.py:690-717)
+                if it > 600_000 and fid2 < best["best_ext2_fid_later"]:
+                    snapshot(f"best_fid_ext2_{it}", "best_ext2_fid_later",
+                             fid2)
             if (writer is not None and it > start_iter
                     and tick(TB_PARTITION_STEPS)):
                 writer.close()
@@ -374,6 +469,8 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                   f"iteration {it}, before profile_start={profile_start} "
                   f"(counted from iteration {start_iter}); no trace written")
         pipeline.close()
+        if fid_ext2_eval is not None:
+            fid_ext2_eval.pipeline.close()
         if writer is not None:
             writer.close()
     return state
