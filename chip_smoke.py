@@ -97,6 +97,32 @@ Phases (any failure exits non-zero; nothing is caught):
              panoramas from best_fid.pt (48 grouped-kernel launches); the
              offline eval CLI (fid, stats, fid from the .pkl, is, lpips)
              on two .npy sets of 256 synthetic 256x768 panoramas
+  12. serve  serving and editing at the shipped widths
+             (spgan_run5k_bf16.yaml + spgan_384x768.yaml, seeded random
+             weights with the ToRGB weights scaled so a panorama's values
+             have a std of ~0.5 instead of saturating; saved as an .npz
+             for the rest): (a) serve(svc, port=0) on a thread, 384x768
+             batch 16 bf16: /healthz, seed 1 indices 0-3, seed 2, four
+             concurrent requests of seed 3, /metadata; every PNG decoded,
+             one batch per seed, B1 48 per new batch and 0 per cached
+             request, the served pixels against the engine's own render
+             of the seed (LSB printed), cold and cached ms; (b) python -m
+             spgan_tpu_torch.serve --ckpt <npz> --port 0 as a process:
+             its printed port, /healthz, one /generate, terminated; (c)
+             invert_patch on spgan.yaml (float32, TF32 off) against a
+             101^2 target the generator renders: 100 steps (ms a step,
+             the loss at steps 0, 10, 100, peak memory, no B1/B3), 5
+             with LPIPS (random_lpips), and cuda against cpu on a tiny
+             config (the first 3 losses); (d) python -m
+             spgan_tpu_torch.infer --interactive (main in process, the
+             script on stdin) at 384x768 batch 1 bf16: gen, region
+             reroll, save, global reroll, load, show, place (c)'s
+             record, save; 5 PNGs, 48 B1 launches a render, show against
+             the region reroll's image (LSB), the record pasted;
+             regenerate against a full render in turns; (e) the ops of
+             this slice (Downsample, replicate Blur, lrelu_plain,
+             spatial styles, fusion styles, the nearest sampler, the
+             global-grid sphere convs, get_to_rgb) cuda against cpu
 Then prints the kernels JSON line, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}.  Imports no JAX.
 """
@@ -681,14 +707,15 @@ def training_crops(B, H, seed):
     return tables, sphere_patch_grid_batch(cp, H, H)
 
 
-def device_ms(run, name, iters=20, tries=3):
+def device_ms(run, name, iters=20, tries=6):
     """Mean device time (torch.profiler, self device time) of the kernels
     whose name holds `name`, over `iters` back-to-back calls of `run`; each
     call must launch one.  Returns (ms, traces taken).  A trace, each with
-    its own fresh profiler, once saw 19 of 20 launches on the H100, cause
-    not found: a short trace is then taken again, up to `tries` times, and
-    the count of traces goes into the kernels line; more launches than
-    calls fail at once."""
+    its own fresh profiler, sometimes sees fewer launches on the H100 (19
+    of 20, or none at all in two traces running), cause not found: a short
+    trace is then taken again, up to `tries` times, and the count of
+    traces goes into the kernels line; more launches than calls fail at
+    once."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -2125,6 +2152,540 @@ def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
             "tf32_rel": tf32_rel, "render_per_batch": per_batch}
 
 
+# ----------------------------------------------------------------------
+# phase 12: serving and editing
+# ----------------------------------------------------------------------
+
+INVERSION_STEPS = 100
+REPL_RENDERS = 5   # gen, region reroll, global reroll, show, place
+
+
+def _counts():
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    return {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
+            "fused_sphere_conv": sk.fused_sphere_conv.launches,
+            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+
+
+def _zero_counts():
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    sk.fused_sphere_conv_grouped.launches = 0
+    sk.fused_sphere_conv.launches = 0
+    ss.sphere_sample_taps.launches = 0
+
+
+def _want_b1(n):
+    return {"fused_sphere_conv_grouped": n, "fused_sphere_conv": 0,
+            "sphere_sample_taps": 0}
+
+
+def _lsb(a, b):
+    """(max |a - b|, share of equal values) of two uint8 images."""
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return int(d.max()), float((d == 0).mean())
+
+
+def _http_get(url, timeout=300):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body, ctype = r.read(), r.headers.get("Content-Type")
+    return ctype, body, (time.perf_counter() - t0) * 1e3
+
+
+def _tame(params, engine, card_str):
+    """Scale the ToRGB weights of the seeded random weights so a random
+    panorama's values have a std of about 0.5: as drawn, the full-width
+    generator's outputs run into the hundreds, the uint8 rounding
+    saturates them and every PNG is near constant, which no pixel check
+    can see.  Two passes (the sphere skip convs' bias and LeakyReLU make
+    the scale not quite linear); the renders also warm the engine."""
+    for _ in range(2):
+        with torch.inference_mode():
+            meta = engine.generate(
+                params, torch.Generator(device="cuda").manual_seed(0))
+        f = 0.5 / float(meta.std())
+        for p in params["ts"]["to_rgbs"]:
+            p["conv"]["weight"].mul_(f)
+    with torch.inference_mode():
+        meta = engine.generate(
+            params, torch.Generator(device="cuda").manual_seed(0))
+    std, sat = float(meta.std()), float((meta.abs() >= 1).float().mean())
+    if not (0.2 < std < 1.0 and sat < 0.2):
+        raise AssertionError(f"tamed weights: std {std}, {sat:.2%} saturated")
+    print(f"[serve] {card_str}: random weights (seed) with the ToRGB weights "
+          f"scaled for a panorama std of ~0.5: std {std:.3f}, "
+          f"{sat:.2%} of the values beyond [-1, 1]")
+
+
+def _serve_in_process(card_str, model_yaml, test_yaml, npz_path):
+    """(a): the shipped widths behind serve(svc, port=0) on a thread; the
+    tamed weights go to npz_path for (b)-(d)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spgan_tpu_torch.compat.load import save_params_npz
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.infer.managers import to_uint8
+    from spgan_tpu_torch.serve import PanoramaService, serve
+    from spgan_tpu_torch.utils.png import decode_image
+
+    cfg = load_config(model_yaml, test_yaml)
+    tp, task = cfg.train_params, cfg.task
+    if (task.height, task.width, task.batch_size, tp.compute_dtype,
+            tp.local_latent_dim, tp.ss_n_layers) != (384, 768, 16, "bfloat16",
+                                                     256, 4):
+        raise AssertionError("serve config is not the shipped 384x768 "
+                             "batch-16 bf16 model")
+    g = Generator.from_config(cfg)
+    params = g.init(torch.Generator().manual_seed(task.seed), device="cuda")
+    svc = PanoramaService(g, params, cfg)
+    _tame(params, svc.engine, card_str)
+    save_params_npz(npz_path, params)
+    httpd = serve(svc, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rows, images = [], {}
+    try:
+        ctype, body, _ = _http_get(base + "/healthz")
+        if json.loads(body) != {"status": "ok"}:
+            raise AssertionError(f"/healthz said {body!r}")
+        for seed, index, new in ((1, 0, True), (1, 1, False), (1, 2, False),
+                                 (1, 3, False), (2, 0, True)):
+            _zero_counts()
+            ctype, png, ms = _http_get(
+                base + f"/generate?seed={seed}&index={index}")
+            launches = _counts()
+            img = decode_image(png)
+            if ctype != "image/png" or img.shape != (384, 768, 3):
+                raise AssertionError(f"seed {seed} index {index}: {ctype} "
+                                     f"{img.shape}")
+            if launches != _want_b1(48 if new else 0):
+                raise AssertionError(f"seed {seed} index {index}: launches "
+                                     f"{launches}")
+            images[seed, index] = img
+            rows.append((seed, index, new, ms, len(png),
+                         launches["fused_sphere_conv_grouped"]))
+        _zero_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            got = list(ex.map(lambda i: _http_get(
+                base + f"/generate?seed=3&index={i}"), range(4)))
+        conc_ms = (time.perf_counter() - t0) * 1e3
+        conc = _counts()
+        if conc != _want_b1(48) or any(
+                decode_image(b).shape != (384, 768, 3) for _, b, _ in got):
+            raise AssertionError(f"4 concurrent seed-3 requests: {conc}")
+        meta = json.loads(_http_get(base + "/metadata")[1])
+        if (meta["stats"]["batches"], meta["stats"]["requests"],
+                meta["use_pallas"], meta["lattice"], meta["batch"]) != (
+                3, 9, True, [6, 10], 16):
+            raise AssertionError(f"/metadata {meta}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+    # the engine's own render of seed 1, after the counts were read
+    with torch.inference_mode():
+        ref = to_uint8(svc.engine.crop_to_target(svc.engine.generate(
+            params, torch.Generator(device="cuda").manual_seed(1)))
+            .cpu().numpy())
+    worst, same = max(_lsb(images[1, i], ref[i]) for i in range(4))
+    if same < 0.99:
+        raise AssertionError(f"served seed 1 vs engine.generate: max "
+                             f"{worst} LSB, {same:.4%} equal")
+    cold = [r[3] for r in rows if r[2]]
+    cached = [r[3] for r in rows if not r[2]]
+    print(f"[serve] {card_str}: in process, 384x768 batch 16 bf16 "
+          f"(spgan_run5k_bf16.yaml, tamed random weights, seed {task.seed}): "
+          f"cold requests (one batch + PNG + HTTP) "
+          f"{', '.join(f'{t:.1f}' for t in cold)} ms; cached requests (PNG "
+          f"+ HTTP) {', '.join(f'{t:.1f}' for t in cached)} ms; 4 concurrent "
+          f"requests of a new seed {conc_ms:.1f} ms for all four; PNG "
+          f"{rows[0][4]} bytes; last batch {meta['stats']['last_batch_secs']}"
+          f" s; B1 launches 48 per new batch, 0 per cached request, 48 for "
+          f"the 4 concurrent; stats {json.dumps(meta['stats'])}")
+    print(f"[serve] served seed 1 (indices 0-3) vs the engine's own "
+          f"generate of seed 1, uint8: max {worst} LSB, {same:.6%} of the "
+          f"values equal")
+    return {"cold_ms": cold, "cached_ms": cached, "max_lsb": worst,
+            "per_batch": max(r[5] for r in rows if r[2]),
+            "cached": max(r[5] for r in rows if not r[2])}
+
+
+def _serve_process(card_str, repo, model_yaml, test_yaml, npz_path):
+    """(b): python -m spgan_tpu_torch.serve --ckpt <the tamed .npz> --port
+    0 as a process: the port it prints, /healthz, one /generate; then it
+    is terminated."""
+    import queue
+    import re
+    import threading
+    import urllib.request
+
+    from spgan_tpu_torch.utils.png import decode_image
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spgan_tpu_torch.serve", "--model-config",
+         model_yaml, "--test-config", test_yaml, "--ckpt", npz_path,
+         "--port", "0"], cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout], daemon=True)
+    reader.start()
+    log, port = [], None
+    t0 = time.perf_counter()
+    try:
+        while port is None:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("serve process: no port in 300 s: "
+                                     + "".join(log[-20:]))
+            try:
+                line = lines.get(timeout=1)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve process exited "
+                                         f"{proc.returncode}: "
+                                         + "".join(log[-20:]))
+                continue
+            log.append(line)
+            m = re.search(r"serving on 127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        ready = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            if json.load(r) != {"status": "ok"}:
+                raise AssertionError("serve process /healthz")
+        _, png, ms = _http_get(base + "/generate?seed=5&index=3")
+        img = decode_image(png)
+        if img.shape != (384, 768, 3) or img.std() < 10:
+            raise AssertionError(f"serve process /generate {img.shape}, std "
+                                 f"{img.std()}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    print(f"[serve] {card_str}: python -m spgan_tpu_torch.serve --port 0 "
+          f"printed port {port} after {ready:.1f} s (start-up, weights, "
+          f"warm-up batch): {log[-1].strip()!r}; /healthz ok; /generate "
+          f"seed 5 {ms:.1f} ms (a new batch); terminated, exit "
+          f"{proc.returncode}")
+
+
+def _inversion(card_str, repo, tmp, npz_path):
+    """(c): invert_patch at full width (spgan.yaml, float32, TF32 off; the
+    tamed weights) on a 101^2 target the generator renders from known
+    fields; then the cuda run against the cpu run on a tiny config from
+    the same start."""
+    from spgan_tpu_torch.compat.load import load_generator_params
+    from spgan_tpu_torch.config import Config, load_config
+    from spgan_tpu_torch.evalkit.lpips import random_lpips
+    from spgan_tpu_torch.infer.inversion import invert_patch
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.tree import tree_map
+
+    cfg = load_config(os.path.join(repo, "configs", "model", "spgan.yaml"))
+    tp = cfg.train_params
+    if (tp.compute_dtype, tp.local_latent_dim, tp.ss_n_layers) != (
+            "float32", 256, 4):
+        raise AssertionError("inversion config is not spgan.yaml's widths")
+    g = Generator.from_config(cfg)
+    params = load_generator_params(npz_path, g, device="cuda")
+    coords, _, cp = g.ss.coord_grid.sample_training(
+        torch.Generator().manual_seed(1), 1)
+    coords = coords.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    zs = g.ss.coord_grid.ss_spatial_size
+    kw = dict(generator=gen, device="cuda")
+    gl = torch.randn((1, 2, g.ts.global_dim), **kw)
+    ll = torch.randn((1, zs, zs, g.ts.local_dim), **kw)
+    tnoise = [torch.randn((1, s, s, 1), **kw)
+              for s in g.ts.stitch_geometry().outfeat_sizes]
+    with torch.no_grad():
+        target = g.ts_on_grids(
+            params, g.ss_on_grids(params, gl[:, 0], ll, coords, cp),
+            g.build_styles(params, gl), cp, noises=tnoise)
+
+    def run(steps, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = invert_patch(g, params, target, cp, coords, steps=steps,
+                           gen=torch.Generator(device="cuda").manual_seed(0),
+                           **kw)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3 / steps
+
+    run(2)                                            # warm-up
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = run(INVERSION_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _counts()
+    lo = res.losses
+    if launches != _want_b1(0) or not np.isfinite(lo).all() or \
+            not lo[-1] < lo[10] < lo[0]:
+        raise AssertionError(f"inversion: launches {launches}, losses "
+                             f"{lo[0]}, {lo[10]}, {lo[-1]}")
+    res_lp, ms_lp = run(5, lpips=random_lpips(device="cuda"))
+    if not np.isfinite(res_lp.losses).all():
+        raise AssertionError(f"LPIPS inversion losses {res_lp.losses}")
+    rec_path = os.path.join(tmp, "inversion_record.npz")
+    res.save(rec_path)
+    print(f"[invert] {card_str}: spgan.yaml widths (the tamed weights), "
+          f"float32, TF32 off, one 101^2 target (its std "
+          f"{float(target.std()):.3f}): {INVERSION_STEPS} Adam steps in "
+          f"{ms:.2f} ms a "
+          f"step (forward, backward, update, one loss to the host), "
+          f"reconstruction loss step 0 {lo[0]:.6f}, step 10 {lo[10]:.6f}, "
+          f"step {INVERSION_STEPS} {lo[-1]:.6f}; peak device memory "
+          f"{peak:.2f} GiB; launches {launches} (the patch grids, no B1/B3);"
+          f" with LPIPS (random_lpips) 5 steps at {ms_lp:.2f} ms a step, "
+          f"losses {', '.join(f'{v:.6f}' for v in res_lp.losses)}")
+
+    # cuda vs cpu on the tiny config, from the same numpy start
+    tcfg = tiny_config(Config)
+    tg = Generator.from_config(tcfg)
+    object.__setattr__(tg.ts, "channel_base", 48)
+    tparams = tg.init(torch.Generator().manual_seed(0), device="cpu")
+    tcoords, _, tcp = tg.ss.coord_grid.sample_training(
+        torch.Generator().manual_seed(2), 1)
+    rng = np.random.RandomState(6)
+    tzs = tg.ss.coord_grid.ss_spatial_size
+    init = {"w_mean": rng.randn(tg.ts.global_dim).astype(np.float32),
+            "z": rng.randn(1, tzs, tzs, tg.ts.local_dim).astype(np.float32),
+            "gz": rng.randn(1, tg.ts.global_dim).astype(np.float32),
+            "noises": [rng.randn(1, s, s, 1).astype(np.float32)
+                       for s in tg.ts.stitch_geometry().outfeat_sizes]}
+    ttarget = torch.as_tensor(rng.uniform(-1, 1, (1, 101, 101, 3))
+                              .astype(np.float32))
+    cpu = invert_patch(tg, tparams, ttarget, tcp, tcoords, steps=3,
+                       init=init).losses
+    gpu = invert_patch(tg, tree_map(lambda t: t.cuda(), tparams),
+                       ttarget.cuda(), tcp, tcoords.cuda(), steps=3,
+                       init=init).losses
+    rel = float(np.max(np.abs(gpu - cpu) / np.abs(cpu)))
+    if rel > 1e-3:
+        raise AssertionError(f"tiny inversion cuda {gpu} vs cpu {cpu}")
+    print(f"[invert] tiny config, 3 steps from one numpy start: cuda "
+          f"{', '.join(f'{v:.7f}' for v in gpu)} vs cpu "
+          f"{', '.join(f'{v:.7f}' for v in cpu)} (max rel {rel:.2e}, limit "
+          f"1e-3)")
+    return rec_path, {"ms_per_step": ms, "peak_gib": peak}
+
+
+def _repl(card_str, repo, tmp, model_yaml, test_yaml, rec_path, npz_path):
+    """(d): python -m spgan_tpu_torch.infer --interactive (its main, in
+    process, with the script on stdin) at 384x768, batch 1, bf16."""
+    import io
+    import re
+
+    from spgan_tpu_torch.infer.__main__ import main
+    from spgan_tpu_torch.infer.testing_vars import TestingVars
+    from spgan_tpu_torch.utils.png import decode_image
+
+    text = open(test_yaml).read()
+    text, n = re.subn(r"^batch_size: .*$", "batch_size: 1", text, flags=re.M)
+    if n != 1:
+        raise AssertionError("no batch_size line in the test yaml")
+    repl_yaml = os.path.join(tmp, "spgan_384x768_batch1.yaml")
+    with open(repl_yaml, "w") as f:
+        f.write(text)
+    vars_path = os.path.join(tmp, "repl_vars.npz")
+    out_dir = os.path.join(tmp, "repl")
+    placed_path = os.path.join(tmp, "repl_placed.npz")
+    script = ["gen 3", "reroll region 0 0 6 6 7", f"save {vars_path}",
+              "reroll global 9", f"load {vars_path}", "show",
+              f"place {rec_path} 0.5", f"save {placed_path}", "quit"]
+    old = sys.stdin
+    sys.stdin = io.StringIO("\n".join(script) + "\n")
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        mgr = main(["--model-config", model_yaml, "--test-config", repl_yaml,
+                    "--ckpt", npz_path, "--interactive", "--save-root",
+                    out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin = old
+    launches = _counts()
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if launches != _want_b1(48 * REPL_RENDERS) or \
+            pngs != [f"{i:06d}.png" for i in range(REPL_RENDERS)]:
+        raise AssertionError(f"REPL: launches {launches}, PNGs {pngs}")
+    imgs = [decode_image(open(os.path.join(out_dir, p), "rb").read())
+            for p in pngs]
+    meta_hw = (mgr.plan.meta_h, mgr.plan.meta_w, 3)
+    if any(im.shape != meta_hw for im in imgs):
+        raise AssertionError(f"REPL PNG shapes {[im.shape for im in imgs]}")
+    worst, same = _lsb(imgs[1], imgs[3])
+    moved = _lsb(imgs[3], imgs[4])[1]
+    placed = TestingVars.load(placed_path).local_latent[0]
+    rec = np.load(rec_path)["z"][0]
+    zr = (placed.shape[0] - rec.shape[0]) // 2
+    zc = int(round(0.5 * placed.shape[1])) - rec.shape[1] // 2
+    pasted = np.array_equal(placed[zr:zr + rec.shape[0],
+                                   zc:zc + rec.shape[1]], rec)
+    if same < 0.99 or moved == 1.0 or not pasted or \
+            min(im.std() for im in imgs) < 10:
+        raise AssertionError(f"REPL: show vs region reroll max {worst} LSB, "
+                             f"{same:.4%} equal; place moved "
+                             f"{1 - moved:.4%}, pasted {pasted}; PNG stds "
+                             f"{[float(im.std()) for im in imgs]}")
+
+    # regenerate (the region's patches only) against a full render
+    tv = TestingVars.load(vars_path)
+    sel = np.zeros(tv.local_latent.shape[1:3])
+    sel[0:6, 0:6] = 1
+    full, part = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mgr.generate_with_vars(tv)
+        full.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        mgr.regenerate(tv, update_by_ss_map=sel)
+        part.append((time.perf_counter() - t0) * 1e3)
+    print(f"[repl] {card_str}: infer --interactive, 384x768 batch 1 bf16 "
+          f"(spgan_run5k_bf16.yaml): {len(script)} commands on stdin in "
+          f"{wall:.1f} s wall (CLI start included), {len(pngs)} PNGs of "
+          f"{meta_hw[1]}x{meta_hw[0]}; B1 48 launches a render "
+          f"({launches['fused_sphere_conv_grouped']} over {REPL_RENDERS}); "
+          f"`show` vs the region reroll's image: max {worst} LSB, "
+          f"{same:.6%} equal; `place` of the inversion record changed "
+          f"{1 - moved:.4%} of the values")
+    print(f"[repl] in turns: full render (generate_with_vars) "
+          f"{', '.join(f'{t:.1f}' for t in full)} ms, regenerate of a 6x6 "
+          f"z region {', '.join(f'{t:.1f}' for t in part)} ms (both copy "
+          f"the meta image to the host)")
+    return {"regenerate_ms": part, "render_ms": full,
+            "per_render": launches["fused_sphere_conv_grouped"]
+            // REPL_RENDERS}
+
+
+def _ops_rest(card_str):
+    """(e): the ops and forward variants ported with this phase, cuda
+    against cpu at small shapes, float32, TF32 off."""
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.geometry import global_conv as gc
+    from spgan_tpu_torch.models.generator import (Generator,
+                                                  create_fusion_styles)
+    from spgan_tpu_torch.ops import modulated as mod
+    from spgan_tpu_torch.ops import upfirdn as up
+    from spgan_tpu_torch.ops.grid_sample import nearest_grid_sample_shared
+    from spgan_tpu_torch.tree import tree_map
+
+    rng = np.random.RandomState(9)
+
+    def t(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32))
+
+    def both(fn, *args):
+        """fn on the args as given (cpu) and moved to cuda."""
+        cuda = tree_map(lambda a: a.cuda() if torch.is_tensor(a) else a,
+                        list(args))
+        return fn(*cuda), fn(*args)
+
+    def init(spec):
+        p = spec.init(torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(2)
+        return tree_map(lambda a: a + 0.3 * torch.randn(
+            a.shape, generator=gen), p)
+
+    errs = {}
+
+    def check(name, pair, atol=1e-4):
+        got, ref = pair
+        if isinstance(got, dict):
+            errs[name] = max(check_close(f"{name} {k}", got[k].cpu(), ref[k],
+                                         atol, 1e-4) for k in ref)
+        else:
+            errs[name] = check_close(name, got.cpu(), ref, atol, 1e-4)
+
+    check("Downsample", both(up.Downsample(), t(2, 12, 10, 5)))
+    check("Blur replicate", both(up.Blur((1.0, 3.0, 3.0, 1.0), pad=(1, 2, 0, 1),
+                                         upsample_factor=2,
+                                         padding_mode="replicate"),
+                                 t(2, 9, 11, 3)))
+    sc = mod.StyledConv(mod.ModulatedConv2d(6, 5, 3, 8, no_zero_pad=True),
+                        activation="lrelu_plain")
+    check("StyledConv lrelu_plain", both(sc.apply, init(sc), t(2, 9, 9, 6),
+                                         t(2, 8), t(2, 7, 7, 1)))
+    for upsample in (False, True):
+        mc = mod.ModulatedConv2d(6, 4, 3, 8, no_zero_pad=True,
+                                 upsample=upsample)
+        check(f"spatial style upsample={upsample}",
+              both(mc.apply, init(mc), t(2, 9, 9, 6), t(2, 11, 11, 8)))
+    check("create_fusion_styles", both(create_fusion_styles, t(2, 3, 5, 7),
+                                       [t(2, 8) for _ in range(3)]))
+    grid = t(5, 11, 2) * 1.3
+    got, ref = both(nearest_grid_sample_shared, t(2, 7, 9, 3), grid)
+    if not torch.equal(got.cpu(), ref):
+        raise AssertionError("nearest_grid_sample_shared: cuda != cpu")
+    errs["nearest_grid_sample_shared"] = 0.0
+    for spec in (gc.GlobalSphereConv2d(4, 5, 3, 2),
+                 gc.IncreIntervalSphereConv2d(4, 5, 3, 2),
+                 gc.IncreIntervalSphereConv2d(4, 5, 3, 1, upsample=True)):
+        check(type(spec).__name__ + f" stride {spec.stride}"
+              + (" upsample" if getattr(spec, "upsample", False) else ""),
+              both(spec.apply, init(spec), t(2, 16, 32, 4)))
+    g = Generator.from_config(tiny_config(Config))
+    object.__setattr__(g.ts, "channel_base", 48)
+    params = g.init(torch.Generator().manual_seed(0), device="cpu")
+    coords, _, cp = g.ss.coord_grid.sample_training(
+        torch.Generator().manual_seed(3), 2)
+    zs = g.ss.coord_grid.ss_spatial_size
+    noises = [t(2, s, s, 1) for s in g.ts.stitch_geometry().outfeat_sizes]
+
+    def to_rgb(p, gl, ll, coords, noises):
+        return g.get_to_rgb(p, cp=cp, global_latent=gl, local_latent=ll,
+                            coords=coords, noises=noises)
+
+    check("get_to_rgb", both(to_rgb, params, t(2, 2, 32), t(2, zs, zs, 16),
+                             coords, noises), atol=2e-4)
+    print(f"[ops] {card_str}: cuda vs cpu, float32 (TF32 off), max abs err "
+          f"{json.dumps(errs)}")
+    return errs
+
+
+def phase_serve(card_str):
+    """Phase 12: the HTTP panorama server in process and as a process, a
+    full-width inversion, the --interactive REPL, and the remaining ops."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    model_yaml = os.path.join(repo, "configs", "model",
+                              "spgan_run5k_bf16.yaml")
+    test_yaml = os.path.join(repo, "configs", "test", "spgan_384x768.yaml")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        npz_path = os.path.join(tmp, "tamed_params.npz")
+        out = _serve_in_process(card_str, model_yaml, test_yaml, npz_path)
+        _serve_process(card_str, repo, model_yaml, test_yaml, npz_path)
+        rec_path, inv = _inversion(card_str, repo, tmp, npz_path)
+        out.update(inv)
+        out.update(_repl(card_str, repo, tmp, model_yaml, test_yaml,
+                         rec_path, npz_path))
+    finally:
+        shutil.rmtree(tmp)
+    _ops_rest(card_str)
+    print(f"[serve] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2150,6 +2711,7 @@ def main():
     phase_train_cli_synthetic(card_str, plain_step_ms, train_cli["plain_ms"])
     options = phase_train_options(card_str, plain_step_ms)
     fid = phase_fid(card_str)
+    served = phase_serve(card_str)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -2187,6 +2749,12 @@ def main():
             # rendering phase 11's best_fid.pt snapshot
             line[-1]["fid_render_launches_per_batch"] = \
                 fid["render_per_batch"]
+            # phase 12: the server per new batch and per cached request,
+            # the --interactive REPL per render (asserted there)
+            line[-1]["serve_launches_per_batch"] = served["per_batch"]
+            line[-1]["serve_cached_launches"] = served["cached"]
+            line[-1]["interactive_launches_per_render"] = \
+                served["per_render"]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({

@@ -178,3 +178,63 @@ def sphere_patch_grid_batch(cp, h: int, w: int, k: int = 3) -> torch.Tensor:
         cp.p_x_st, cp.p_x_ed, cp.p_y_st, cp.p_y_ed, cp.circular,
         cp.grid_partial, h=h, w=w, k=k, x_total=cp.x_total,
         y_total=cp.y_total)
+
+
+def incre_interval_pattern(h: int, w: int, k: int, stride: int = 1,
+                           upsample: bool = False) -> np.ndarray:
+    """Border-shrinking global pattern of the stride-2 / upsampling
+    sphere convs: the output lat/lon centres drop the border taps and are
+    re-spread over the whole sphere with linspace, so the conv keeps full
+    coverage.  (1, Ho*k, Wo*k, 2) in input pixel units, (lat, lon)."""
+    if upsample:
+        out_h = stride * (h - k * stride * 2 - 1) + (1 + stride * 2) * k
+        out_w = stride * (w - k * stride * 2 - 1) + (1 + stride * 2) * k
+        h_range = np.linspace(0, h, out_h)
+        w_range = np.linspace(0, w, out_w)
+    else:
+        h_range = _respread_centres(h, k, stride)
+        w_range = _respread_centres(w, k, stride)
+    return _global_latlon(h, w, k, h_range, w_range)
+
+
+def _respread_centres(n: int, k: int, s: int) -> np.ndarray:
+    delete = k // 2
+    if k == 1:
+        return np.arange(0, n, s).astype(np.float64)
+    if k % 2 == 0:
+        base = np.arange(0, n, s)[delete - 1: -delete]
+    elif s == 1:
+        base = np.arange(0, n, s)[delete: -delete]
+    elif s == 2 and delete == 1:
+        base = np.arange(0, n, s)
+    else:
+        base = np.arange(0, n, s)[delete - 1: -delete + 1]
+    return np.linspace(0, n, len(base))
+
+
+def global_sphere_pattern(h: int, w: int, k: int, stride: int = 1
+                          ) -> np.ndarray:
+    """Global equirectangular gnomonic pattern, one k x k tap block per
+    stride-th input pixel: (1, H*k, W*k, 2) in pixel units, (lat, lon).
+    Numpy, float64, made once per shape."""
+    return _global_latlon(h, w, k, np.arange(0, h, stride),
+                          np.arange(0, w, stride))
+
+
+def _global_latlon(h: int, w: int, k: int, h_range: np.ndarray,
+                   w_range: np.ndarray) -> np.ndarray:
+    ker_x, ker_y, rho, nu = _kernel_offsets(k, h, w)
+    cos_nu, sin_nu = np.cos(nu), np.sin(nu)
+    lat_range = ((h_range / h) - 0.5) * np.pi
+    lon_range = ((w_range / w) - 0.5) * TWO_PI
+    sin_lat = np.sin(lat_range)[:, None, None]
+    cos_lat = np.cos(lat_range)[:, None, None]
+    lat = np.arcsin(cos_nu * sin_lat + ker_y * sin_nu * cos_lat / rho)
+    lon = np.arctan(ker_x * sin_nu /
+                    (rho * cos_lat * cos_nu - ker_y * sin_lat * sin_nu))
+    lat = lat[:, None] + np.zeros((1, len(lon_range), 1, 1))
+    lon = lon[:, None] + lon_range[None, :, None, None]
+    lat = (lat / np.pi + 0.5) * h
+    lon = ((lon / TWO_PI + 0.5) * w) % w
+    latlon = np.stack([lat, lon], axis=-1).transpose(0, 2, 1, 3, 4)
+    return latlon.reshape(1, latlon.shape[0] * k, latlon.shape[2] * k, 2)

@@ -8,13 +8,15 @@ flag):
         [--exp-suffix S] [--override-save-idx I] [--inter-ckpt PATH] \\
         [--dump-vars] [--save_all_space] [--inv-records A:B \\
         --inv-placements x,y] [--profile-dir DIR] [--clear-fid-cache] \\
-        [--debug] [--device cuda|cpu]
+        [--interactive] [--debug] [--device cuda|cpu]
 
 Runs on cuda unless --device cpu.  Without --ckpt (or with --random-init)
 the generator has random weights from the seed.  --ckpt takes an .npz
 export (either package's save_params_npz), a reference PyTorch checkpoint,
 or the checkpoint directory (or one checkpoint file) of a training run of
 the port (python -m spgan_tpu_torch.train); not an Orbax directory.
+--interactive (or task.interactive) runs the editing REPL
+(infer/interactive.py) on stdin instead of the batches; batch_size 1.
 """
 import argparse
 import glob
@@ -22,14 +24,14 @@ import os
 import shutil
 import socket
 
-import numpy as np
 import torch
 
 from spgan_tpu_torch.compat.load import load_generator_params
 from spgan_tpu_torch.config import load_config
 from spgan_tpu_torch.device import resolve
+from spgan_tpu_torch.infer.interactive import run_interactive
 from spgan_tpu_torch.infer.managers import save_image_batch
-from spgan_tpu_torch.infer.testing_vars import TestingVars
+from spgan_tpu_torch.infer.testing_vars import TestingVars, load_record
 from spgan_tpu_torch.utils.flops import generator_flops, pretty
 from spgan_tpu_torch.utils.misc import import_func, manually_seed
 
@@ -80,7 +82,8 @@ def parse_args(argv=None):
                     help="write a torch.profiler Chrome trace of one batch "
                          "(the second when more than one runs) here")
     ap.add_argument("--interactive", action="store_true",
-                    help="the editing REPL (not ported: ROADMAP A13)")
+                    help="the editing REPL on stdin (infer/interactive.py; "
+                         "batch_size 1)")
     ap.add_argument("--debug", action="store_true",
                     help="one image, one batch")
     ap.add_argument("--device", default="cuda",
@@ -89,15 +92,7 @@ def parse_args(argv=None):
 
 
 def _inv_records(args):
-    records = []
-    for path in args.inv_records.split(":"):
-        with np.load(path) as data:
-            rec = {"local_latent": data["z"][0],
-                   "noises": [data[k][0] for k in sorted(data.files)
-                              if k.startswith("noise")]}
-            if "gz" in data.files:
-                rec["global_latent"] = data["gz"]
-        records.append(rec)
+    records = [load_record(p) for p in args.inv_records.split(":")]
     if args.inv_placements:
         placements = [float(v) for v in args.inv_placements.split(",")]
     else:
@@ -108,21 +103,19 @@ def _inv_records(args):
 def main(argv=None):
     """Run the CLI; returns the manager (None with --calc-flops)."""
     args = parse_args(argv)
-    if args.interactive:
-        raise NotImplementedError("--interactive (infer/interactive.py) is "
-                                  "not ported (ROADMAP A13)")
-
     dev = resolve(args.device)
     cfg = load_config(args.model_config, args.test_config)
+    if args.interactive:
+        cfg.task.interactive = True
+    if cfg.task.interactive and cfg.task.batch_size != 1:
+        raise ValueError("interactive editing expects task.batch_size 1, "
+                         f"got {cfg.task.batch_size}")
     if args.num_gen is not None:
         cfg.task.num_gen = args.num_gen
     if args.override_save_idx is not None:
         cfg.task.init_index = args.override_save_idx
     if args.engine is not None:
         cfg.task.engine = args.engine
-    if cfg.task.interactive:
-        raise NotImplementedError("task.interactive (infer/interactive.py) "
-                                  "is not ported (ROADMAP A13)")
     if cfg.train_params.compute_dtype == "float32":
         # float32 means float32: no TF32 in cuDNN convolutions or matmuls
         torch.backends.cudnn.allow_tf32 = False
@@ -162,6 +155,11 @@ def main(argv=None):
         g=g, params_ema=params_ema, config=cfg, save_root=save_root,
         device=dev)
     manager.task_specific_init(seed=seed)
+
+    if cfg.task.interactive:
+        n = run_interactive(manager, save_root)
+        print(f" [*] interactive session done: {n} image(s) in {save_root}")
+        return manager
 
     batch = cfg.task.batch_size
     num_gen = 1 if args.debug else cfg.task.num_gen

@@ -18,20 +18,26 @@ import torch
 from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.infer.engine import PanoramaEngine
-from spgan_tpu_torch.infer.stitcher import (build_close_loop_plan,
+from spgan_tpu_torch.infer.stitcher import (LatticePlan,
+                                            build_close_loop_plan,
                                             build_infinite_plan)
 from spgan_tpu_torch.infer.testing_vars import TestingVars
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.utils.png import write_png
 
 
+def to_uint8(images: np.ndarray) -> np.ndarray:
+    """(..., 3) in [-1, 1] -> uint8, quantized as the JAX package does."""
+    arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
+    return (arr * 255.0 + 0.5).astype(np.uint8)
+
+
 def save_image_batch(images: np.ndarray, save_root: str, start_id: int,
                      suffix: str = "") -> List[str]:
     """images: (B,H,W,3) in [-1,1] -> PNG files named by zero-padded
-    global id, quantized as the JAX package does (on the host)."""
+    global id, quantized by to_uint8 (on the host)."""
     os.makedirs(save_root, exist_ok=True)
-    arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
-    arr = (arr * 255.0 + 0.5).astype(np.uint8)
+    arr = to_uint8(images)
     paths = []
     for i in range(arr.shape[0]):
         p = os.path.join(save_root, f"{start_id + i:06d}{suffix}.png")
@@ -54,6 +60,10 @@ class BaseManager:
 
     def __post_init__(self):
         self.device = resolve(self.device)
+
+    @property
+    def plan(self) -> LatticePlan:
+        return self.engine.plan
 
     def task_specific_init(self, seed: Optional[int] = None) -> None:
         if self.config.task.init_index is not None:

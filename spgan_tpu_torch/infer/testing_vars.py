@@ -109,3 +109,25 @@ class TestingVars:
                 for dx in range(n.shape[1]):
                     col = (c0 + dx) % nw_field
                     field[batch_index, r0:r0 + n.shape[0], col] = n[:, dx]
+
+
+def load_record(path: str) -> Dict:
+    """An inversion record file as a replace_by_records record.  Reads the
+    layout InversionResult.save writes (z, noiseNN with a batch axis of 1,
+    optional gz) and the one the JAX package's REPL expects (local_latent,
+    noise_{i}, optional global_latent)."""
+    with np.load(path) as d:
+        if "z" in d.files:
+            rec = {"local_latent": d["z"][0],
+                   "noises": [d[k][0] for k in sorted(d.files)
+                              if k.startswith("noise")]}
+            if "gz" in d.files:
+                rec["global_latent"] = d["gz"]
+            return rec
+        noises = []
+        while f"noise_{len(noises)}" in d.files:
+            noises.append(d[f"noise_{len(noises)}"])
+        rec = {"local_latent": d["local_latent"], "noises": noises}
+        if "global_latent" in d.files:
+            rec["global_latent"] = d["global_latent"]
+        return rec

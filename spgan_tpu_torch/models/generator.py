@@ -36,6 +36,15 @@ from spgan_tpu_torch.ops.spatial import (ConvSpec, derive_stitch_geometry,
 from spgan_tpu_torch.tree import tree_map
 
 
+def create_fusion_styles(fusion_map: torch.Tensor, styles) -> torch.Tensor:
+    """(B,N,H,W) region-weight maps and N style centres (B,D) -> the
+    spatially fused style (B,H,W,D)."""
+    fused = 0.0
+    for i, st in enumerate(styles):
+        fused = fused + fusion_map[:, i][..., None] * st[:, None, None, :]
+    return fused
+
+
 def pair_inputs(x: torch.Tensor) -> torch.Tensor:
     """[A,B,C,D] -> [A,A,C,C] (dual latents for the diversity loss); even
     batch only."""
@@ -79,6 +88,12 @@ def _plain_conv1x1(params, x):
 
 def tables_to(tables: dict, device) -> dict:
     return {k: v.to(device).contiguous() for k, v in tables.items()}
+
+
+def patch_grids(cp: CoordsPartial, sizes: Sequence[int],
+                device) -> List[torch.Tensor]:
+    """The per-pixel patch grids of cp at each feature size, on device."""
+    return [sphere_patch_grid_batch(cp, s, s).to(device) for s in sizes]
 
 
 # layers of the ss_mapping MLP (reference: n_mlp 8)
@@ -326,17 +341,27 @@ class TextureSynthesizer:
             h = spec.apply(p, h)
         return h
 
+    def mean_latent(self, params: dict, gen: torch.Generator,
+                    n: int) -> torch.Tensor:
+        """(1, D): the mean w of n z's drawn from `gen` (on the params'
+        device)."""
+        dev = params["mapping"][0]["weight"].device
+        z = torch.randn((n, self.global_dim), generator=gen, device=dev)
+        return self.mapping(params, z).mean(0, keepdim=True)
+
     def synthesize(self, params: dict, structure_latent: torch.Tensor,
-                   styles: torch.Tensor,
-                   noises: Sequence[Optional[torch.Tensor]],
+                   styles, noises: Optional[Sequence[Optional[torch.Tensor]]],
                    skip_tables: Optional[Sequence[dict]],
                    skip_margins: Optional[Sequence[int]], groups: int = 0,
-                   skip_grids: Optional[Sequence[torch.Tensor]] = None
-                   ) -> torch.Tensor:
-        """structure_latent: (B,11,11,local_dim); styles: (B, n_latent, D);
-        noises: one map per conv; skip_tables: per sphere skip conv, per
-        patch (shared by B//groups samples when groups > 0); or, with
-        skip_grids (B,3h,3w,2) per skip conv, no tables.
+                   skip_grids: Optional[Sequence[torch.Tensor]] = None,
+                   return_feats: bool = False):
+        """structure_latent: (B,11,11,local_dim); styles: (B, n_latent, D),
+        or a per-layer list of (B,D) vectors or (B,H,W,D) fused spatial
+        styles; noises: one map per conv (None: no noise); skip_tables:
+        per sphere skip conv, per patch (shared by B//groups samples when
+        groups > 0); or, with skip_grids (B,3h,3w,2) per skip conv, no
+        tables.  return_feats: also return the RGB skip before and after
+        each sphere skip conv ({"to_rgb_i", "sphere_to_rgb_i"}).
 
         The skip graph: conv i runs, then when i == src of the pending
         to_rgb, the sphere skip conv (for i in i2j) transforms the running
@@ -344,16 +369,25 @@ class TextureSynthesizer:
         convs, to_rgbs, i2j = self.plan()
         rgb_specs = self._to_rgbs()
         sphere_skip = SphereSkipConv()
+
+        def style_at(idx):
+            if isinstance(styles, (list, tuple)):
+                return styles[idx]
+            return styles[:, idx]
+
         h = structure_latent
         skip = None
+        feats = {}
         cur_rgb = 0
         for i, spec in enumerate(self._styled_convs()):
-            h = spec.apply(params["convs"][i], h, styles[:, i],
-                           noise=noises[i])
+            h = spec.apply(params["convs"][i], h, style_at(i),
+                           noise=None if noises is None else noises[i])
             t = to_rgbs[cur_rgb]
             if i == t["src"]:
                 if i in i2j:
                     j = i2j[i]
+                    if return_feats:
+                        feats[f"to_rgb_{i}"] = skip
                     if skip_grids is not None:
                         skip = sphere_skip.apply(params["sp_convs"][j], skip,
                                                  None, grid=skip_grids[j])
@@ -361,9 +395,13 @@ class TextureSynthesizer:
                         skip = sphere_skip.apply(
                             params["sp_convs"][j], skip, skip_tables[j],
                             groups=groups, margin=skip_margins[j])
+                    if return_feats:
+                        feats[f"sphere_to_rgb_{i}"] = skip
                 skip = rgb_specs[cur_rgb].apply(
-                    params["to_rgbs"][cur_rgb], h, styles[:, t["tgt"]], skip)
+                    params["to_rgbs"][cur_rgb], h, style_at(t["tgt"]), skip)
                 cur_rgb += 1
+        if return_feats:
+            return skip, feats
         return skip
 
 
@@ -480,7 +518,7 @@ class Generator:
         if ss_tables_mode == "sample":
             tables = self.ss.train_tables(cp, local_latent.shape[1])
         else:
-            grids = [sphere_patch_grid_batch(cp, s, s).to(dev) for s in sizes]
+            grids = patch_grids(cp, sizes, dev)
         if ss_tables_mode == "fused":
             tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
                       for s in sizes]
@@ -490,8 +528,7 @@ class Generator:
                                   noises=ss_noises)
         skip_sizes = self.ts.skip_sizes(structure.shape[1])
         if ss_tables_mode == "grid":
-            skip_grids = [sphere_patch_grid_batch(cp, s, s).to(dev)
-                          for s in skip_sizes]
+            skip_grids = patch_grids(cp, skip_sizes, dev)
         else:
             skip = [sphere_offset_tables_batch(cp, s, s) for s in skip_sizes]
             if ts_skip_margins is None:
@@ -506,6 +543,57 @@ class Generator:
             out["diversity_z_loss"] = self.ss.diversity_z_loss(
                 local_latent, structure)
         return out
+
+    def ss_on_grids(self, params: dict, gz: torch.Tensor,
+                    local_latent: torch.Tensor, coords: torch.Tensor,
+                    cp: CoordsPartial) -> torch.Tensor:
+        """The SS modulated by gz (B, global_dim), its sphere convs on the
+        per-pixel patch grids of cp (no SS noise)."""
+        grids = patch_grids(cp, self.ss.layer_sizes(local_latent.shape[1]),
+                            local_latent.device)
+        return self.ss.apply(params["ss"], gz, local_latent, coords, grids,
+                             None, tables_mode="grid")
+
+    def ts_on_grids(self, params: dict, structure: torch.Tensor, styles,
+                    cp: CoordsPartial, noises=None,
+                    return_feats: bool = False):
+        """The TS on `structure` with its sphere skip convs on the patch
+        grids of cp; styles (B, n_latent, D) or a per-layer list."""
+        skip_grids = patch_grids(cp, self.ts.skip_sizes(structure.shape[1]),
+                                 structure.device)
+        return self.ts.synthesize(params["ts"], structure, styles, noises,
+                                  None, None, skip_grids=skip_grids,
+                                  return_feats=return_feats)
+
+    def get_to_rgb(self, params: dict, *, cp: CoordsPartial,
+                   global_latent: Optional[torch.Tensor] = None,
+                   local_latent: Optional[torch.Tensor] = None,
+                   coords: Optional[torch.Tensor] = None,
+                   structure_latent: Optional[torch.Tensor] = None,
+                   styles=None, noises=None,
+                   inject_index: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Debug forward returning the RGB skip around each sphere skip
+        conv ("to_rgb_i", "sphere_to_rgb_i") and the patch ("patch"), on
+        the patch grids.  structure_latent, or global_latent with
+        local_latent and coords; styles, or global_latent (built as
+        apply builds them)."""
+        if structure_latent is None:
+            structure_latent = self.ss_on_grids(
+                params, global_latent[:, 0], local_latent, coords, cp)
+        if styles is None:
+            styles = self.build_styles(params, global_latent, inject_index)
+        img, feats = self.ts_on_grids(params, structure_latent, styles, cp,
+                                      noises, return_feats=True)
+        feats["patch"] = img
+        return feats
+
+    def mean_latent(self, params: dict, gen: torch.Generator,
+                    n: int = 4096) -> torch.Tensor:
+        return self.ts.mean_latent(params["ts"], gen, n)
+
+    def get_style(self, params: dict, z: torch.Tensor) -> torch.Tensor:
+        return self.ts.mapping(params["ts"], z)
 
 
 def _tree_to(tree, device):

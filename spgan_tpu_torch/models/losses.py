@@ -65,3 +65,23 @@ def coord_ac_loss(pred: torch.Tensor, label: torch.Tensor,
     if hori_only:
         return (pred[:, 1] - label[:, 1]).abs().mean()
     return (pred - label).abs().mean()
+
+
+def noise_regularize(noises) -> torch.Tensor:
+    """Shift-correlation penalty pyramid over NHWC noise maps (inversion):
+    at each level the squared means of the map times itself rolled by one
+    along W (axis 2) and along H (axis 1); then, down to a side of 8, an
+    odd side drops its last row or column and the map is 2x2 mean
+    pooled."""
+    loss = noises[0].new_zeros(())
+    for n in noises:
+        while True:
+            b, h, w, c = n.shape
+            loss = (loss
+                    + torch.square((n * torch.roll(n, 1, dims=2)).mean())
+                    + torch.square((n * torch.roll(n, 1, dims=1)).mean()))
+            if min(h, w) <= 8:
+                break
+            n = n[:, :h - h % 2, :w - w % 2]
+            n = n.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+    return loss

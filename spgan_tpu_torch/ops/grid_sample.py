@@ -53,6 +53,24 @@ def bilinear_grid_sample_grouped(x: torch.Tensor, grid: torch.Tensor
     return (top * (1 - wy) + bot * wy).reshape(b, ho, wo, c)
 
 
+def nearest_grid_sample_shared(x: torch.Tensor, grid: torch.Tensor
+                               ) -> torch.Tensor:
+    """Nearest-neighbour sampling with one grid for the whole batch: x
+    (B,H,W,C), grid (Ho,Wo,2) in [-1,1], align_corners=True, zeros
+    outside (torch's F.grid_sample(mode="nearest", padding_mode="zeros"),
+    which rounds half to even, as torch.round does).  The global-grid
+    sphere convs sample through it."""
+    b, h, w, c = x.shape
+    gx = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    gy = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    xi = torch.round(gx).to(torch.int64)
+    yi = torch.round(gy).to(torch.int64)
+    inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+    idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(-1)
+    v = x.reshape(b, h * w, c)[:, idx].reshape(b, *yi.shape, c)
+    return v * inb.to(x.dtype)[None, ..., None]
+
+
 def _nearest_upsample3(z: torch.Tensor) -> torch.Tensor:
     """(B,H,W,C) -> (B,3H,3W,C) by repetition."""
     return z.repeat_interleave(3, dim=1).repeat_interleave(3, dim=2)

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from spgan_tpu_torch.infer.calibrate import resize_align_corners
 from spgan_tpu_torch.ops.linear import EqualLinear, fused_leaky_relu
 from spgan_tpu_torch.ops.upfirdn import Blur, Upsample
 
@@ -53,6 +54,18 @@ class ModulatedConv2d:
     @property
     def scale(self) -> float:
         return 1.0 / math.sqrt(self.in_ch * self.kernel_size ** 2)
+
+    @property
+    def dirty_rm_size(self) -> Tuple[int, int]:
+        """Border rows/columns a no-pad conv leaves dirty."""
+        if self.upsample:
+            if self.no_zero_pad:
+                p = len(self.blur_kernel) // 2
+                return (p, p)
+            return (0, 0)
+        if self.no_zero_pad:
+            return (self.kernel_size // 2, self.kernel_size // 2)
+        return (0, 0)
 
     @property
     def padding(self) -> int:
@@ -99,11 +112,47 @@ class ModulatedConv2d:
         denom = torch.square(s) @ w2.t()
         return torch.rsqrt(denom + self.eps)
 
+    def apply_spatial_style(self, params: dict, x: torch.Tensor,
+                            style: torch.Tensor) -> torch.Tensor:
+        """Spatially shaped styles (style fusion): style (B,Hs,Ws,style_dim)
+        is center-cropped to x, the modulation applied per pixel and the
+        demodulation estimated per pixel; after an upsample the demod map
+        is resized (bilinear, align_corners) to the output."""
+        style = align_spatial(style, x)
+        sb, sh, sw, _ = style.shape
+        s_map = self.modulation_spec().apply(
+            params["modulation"], style.reshape(-1, self.style_dim))
+        s_map = s_map.reshape(sb, sh, sw, self.in_ch)
+        xs = x * s_map.to(x.dtype)
+        w = params["weight"].to(x.dtype) * self.scale
+        if self.demodulate:
+            w2 = torch.sum(torch.square(w), dim=(2, 3))    # (out, in)
+            demod = torch.rsqrt(torch.einsum(
+                "bhwi,oi->bhwo", torch.square(s_map), w2.to(s_map.dtype))
+                + self.eps).to(x.dtype)
+        if self.upsample:
+            y = conv_transpose2_nhwc(xs, w)[:, 1:-1, 1:-1, :]
+            if self.demodulate:
+                demod = resize_align_corners(demod, y.shape[1], y.shape[2])
+                y = y * demod.to(x.dtype)
+            return self._blur()(y)
+        y = conv2d_nhwc(xs, w, padding=self.padding)
+        if self.demodulate:
+            if self.padding == 0:
+                d0, d1 = self.dirty_rm_size
+                demod = demod[:, d0:sh - d0, d1:sw - d1]
+            y = y * demod
+        return y
+
     def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor
               ) -> torch.Tensor:
         """x: (B,H,W,in_ch); style: (B,style_dim), or (B,in_ch) already
-        modulated.  Returns NHWC; upsample: 2H-1-2 after the blur for a
-        length-3 blur kernel; plain: H - 2*(k//2) when no_zero_pad."""
+        modulated, or (B,Hs,Ws,style_dim) spatially shaped
+        (apply_spatial_style).  Returns NHWC; upsample: 2H-1-2 after the
+        blur for a length-3 blur kernel; plain: H - 2*(k//2) when
+        no_zero_pad."""
+        if style.ndim == 4:
+            return self.apply_spatial_style(params, x, style)
         s = (self.style_scale(params, style)
              if style.shape[-1] == self.style_dim else style)
         w = params["weight"].to(x.dtype) * self.scale
@@ -140,16 +189,20 @@ class NoiseInjection:
 
 @dataclass(frozen=True)
 class StyledConv:
-    """ModulatedConv2d + noise injection + fused bias LeakyReLU*sqrt(2)."""
+    """ModulatedConv2d + noise injection + fused bias LeakyReLU*sqrt(2);
+    activation "lrelu_plain": plain LeakyReLU(0.01), no bias, no sqrt(2)
+    gain (the reference's gs-variant "LeakyReLU_n")."""
 
     conv: ModulatedConv2d
     disable_noise: bool = False
+    activation: str = "fused_lrelu"  # "fused_lrelu" | "lrelu_plain"
 
     def init(self, gen: torch.Generator) -> dict:
         params = {"conv": self.conv.init(gen)}
         if not self.disable_noise:
             params["noise"] = NoiseInjection().init()
-        params["act_bias"] = torch.zeros((self.conv.out_ch,))
+        if self.activation == "fused_lrelu":
+            params["act_bias"] = torch.zeros((self.conv.out_ch,))
         return params
 
     def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor,
@@ -157,7 +210,9 @@ class StyledConv:
         y = self.conv.apply(params["conv"], x, style)
         if not self.disable_noise:
             y = NoiseInjection().apply(params["noise"], y, noise=noise)
-        return fused_leaky_relu(y, params["act_bias"])
+        if self.activation == "fused_lrelu":
+            return fused_leaky_relu(y, params["act_bias"])
+        return F.leaky_relu(y, 0.01)
 
 
 def align_spatial(source: Optional[torch.Tensor], target: torch.Tensor):

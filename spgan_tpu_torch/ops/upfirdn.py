@@ -73,11 +73,14 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
 @dataclass(frozen=True)
 class Blur:
     """Parameter-free FIR blur; kernel is a 1-D/2-D stencil (pre-
-    `make_kernel`)."""
+    `make_kernel`).  padding_mode "replicate" pads with the edge values
+    before a valid FIR: pad (p0, p1) on both spatial dims, or (left,
+    right, top, bottom)."""
 
     kernel: Tuple[float, ...] = (1.0, 2.0, 1.0)
-    pad: Tuple[int, int] = (0, 0)
+    pad: Tuple[int, ...] = (0, 0)
     upsample_factor: int = 1
+    padding_mode: str = "zero"  # "zero" | "replicate"
 
     def k2d(self) -> np.ndarray:
         k = make_kernel(np.asarray(self.kernel, np.float32))
@@ -86,6 +89,12 @@ class Blur:
         return k
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding_mode == "replicate":
+            p = self.pad
+            lrtb = (p[0], p[1], p[0], p[1]) if len(p) == 2 else tuple(p)
+            x = F.pad(x.permute(0, 3, 1, 2), lrtb,
+                      mode="replicate").permute(0, 2, 3, 1)
+            return upfirdn2d(x, self.k2d())
         return upfirdn2d(x, self.k2d(), pad=self.pad)
 
 
@@ -112,3 +121,16 @@ class Upsample:
         pad0 = (p + 1) // 2 + self.factor - 1
         pad1 = p // 2
         return upfirdn2d(x, k, up=self.factor, down=1, pad=(pad0, pad1))
+
+
+@dataclass(frozen=True)
+class Downsample:
+    """x`factor` FIR downsampling (FIR, then stride `factor`)."""
+
+    kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0)
+    factor: int = 2
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        k = make_kernel(np.asarray(self.kernel, np.float32))
+        p = k.shape[0] - self.factor
+        return upfirdn2d(x, k, down=self.factor, pad=((p + 1) // 2, p // 2))

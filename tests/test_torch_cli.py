@@ -140,8 +140,7 @@ def test_cli_cuda_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--interactive"], "A13"), (["--engine", "sharded"], "A12"),
-    (["--engine", "halo"], "A12")])
+    (["--engine", "sharded"], "A12"), (["--engine", "halo"], "A12")])
 def test_cli_unported_modes_raise(tmp_path, monkeypatch, flag, item):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
