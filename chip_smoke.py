@@ -123,8 +123,35 @@ Phases (any failure exits non-zero; nothing is caught):
              this slice (Downsample, replicate Blur, lrelu_plain,
              spatial styles, fusion styles, the nearest sampler, the
              global-grid sphere convs, get_to_rgb) cuda against cpu
-Then prints the kernels JSON line, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.  Imports no JAX.
+  13. scale  scale-out on torch.distributed, every world in child
+             processes of this script (python3 chip_smoke.py
+             --scale-child ...) with a timeout of its own, on this one
+             card: B3 at a rank's batch of 8 against its plain version;
+             (a) an NCCL world of one: the sharded engine at full width
+             (spgan_run5k_bf16.yaml + spgan_384x768.yaml, batch 16, bf16,
+             patch_chunk 4) against the folded engine on the same
+             fields, and a data-parallel plain step of spgan.yaml (batch
+             16, float32) against the plain TrainStep, which also makes
+             the plain and R1+PPL steps (d) is held against; (b) the
+             sharded engine on 2 and 4 gloo ranks sharing cuda:0 against
+             the folded engine, B1 24 and 12 a rank a generate; (c) the
+             halo path at spgan.yaml's widths (window 35, halo 29 latent
+             columns, float32, batch 4) at 384x1920 over 4 ranks and
+             384x1056 over 2 (11 columns: pad + drop) against one rank
+             bit for bit, one rank against the folded engine on the
+             halo's fields, B1 at the halo's shapes against its plain
+             version; (d) a plain and an R1+PPL data-parallel step on 2
+             gloo ranks against (a)'s one-process steps (rtol 5e-4, atol
+             1e-5), equal parameter digests, B3 8 and 12 a rank; then
+             train() on 2 ranks for 4 iterations of spgan_run5k.yaml
+             (synthetic source), each rank in its own directory: only
+             rank 0's checkpoint directory exists, and the infer CLI
+             renders 16 PNGs from it (48 B1 launches a batch).  Every
+             multi-rank time is ranks sharing one card over gloo, not a
+             scale-out rate.
+Then prints the whole script's time, the kernels JSON line, the card's
+name and power limit, and as the last line {"ok": true, "device":
+{...}}.  Imports no JAX.
 """
 import json
 import math
@@ -2686,12 +2713,802 @@ def phase_serve(card_str):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+SCALE_WORLD_TIMEOUT_S = 300  # each world's children, from their start
+SCALE_GROUP_TIMEOUT_S = 240  # each process group's collectives
+SCALE_REPS = 3               # timed generates per world (after a warm-up)
+HALO_BATCH = 4
+HALO_WIDTHS = {1920: 4, 1056: 2}  # width: ranks (20 and 11 lattice columns)
+HALO_SEED = 7
+SHARING = "ranks sharing one card over gloo, not a scale-out rate"
+# the data-parallel steps' metrics against one process's: JAX's bound
+# (__graft_entry__.py phase 1b, taken at tiny widths on the CPU) ...
+DP_RTOL, DP_ATOL = 5e-4, 1e-5
+# ... except the PPL penalty of the R1+PPL step at full width (2-rank vs
+# one process: 7.73e-4, while the path lengths and their running mean
+# agree within 2.83e-4): one process's own path lengths move by up to
+# 6.05e-4 of their value between a batch of 8 and two of 4 ((a) prints
+# this split floor every run; NVIDIA H100 80GB HBM3, 700.00 W), and the
+# penalty is about quadratic in them, so ~1.2e-3; the limit leaves room
+# over that
+PATH_RTOL = 2e-3
+# the parameters after a 2-rank step against one process's, as the CPU
+# test holds them (tests/test_torch_scale_train.py).  Adam with beta1 0
+# moves a parameter by lr its first update and by up to sqrt(1 + beta2)
+# lr its second, whatever the gradient's size, so a near-zero gradient
+# whose sign flips under another summation order moves it by up to ~4.8
+# lr (7.7e-3 for G) over an R1+PPL step's two updates; what tells a wrong
+# reduction is the share of parameters off by more than PARAMS_ATOL
+# (0.17% of G's in the R1+PPL step; 22% when the PPL phase's gradients
+# are summed over 2 ranks instead of averaged; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+PARAMS_MAX, PARAMS_ATOL, PARAMS_FRAC = 0.01, 5e-4, 0.005
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_world(scenario, n, tmp, args=(), cwds=None,
+               timeout=SCALE_WORLD_TIMEOUT_S):
+    """The n ranks of one world as children of this script (python3
+    chip_smoke.py --scale-child ...), each with its output in a file;
+    returns their JSON results in rank order.  A child that fails or is
+    still running after `timeout` fails the phase: every child is killed
+    first.  Their "[scale" lines are echoed."""
+    port, t0 = _free_port(), time.monotonic()
+    runs = []
+    for r in range(n):
+        stem = os.path.join(tmp, f"{scenario}_{n}_{r}")
+        with open(stem + ".log", "wb") as log:
+            runs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--scale-child",
+                 scenario, str(n), str(r), str(port), stem + ".json",
+                 *map(str, args)],
+                stdout=log, stderr=subprocess.STDOUT,
+                cwd=None if cwds is None else cwds[r]), stem))
+    failed = None
+    try:
+        for r, (p, _) in enumerate(runs):
+            try:
+                p.wait(timeout=max(1.0, t0 + timeout - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed = (r, f"still running after {timeout} s")
+                break
+            if p.returncode:
+                failed = (r, f"exit code {p.returncode}")
+                break
+    finally:
+        for p, _ in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = []
+    for _, stem in runs:
+        with open(stem + ".log", errors="replace") as f:
+            logs.append(f.read())
+    for text in logs:
+        for line in text.splitlines():
+            if line.startswith("[scale"):
+                print(line)
+    if failed is not None:
+        r, why = failed
+        raise AssertionError(f"[scale] {scenario}: rank {r} of {n} "
+                             f"{why}:\n{logs[r][-6000:]}")
+    print(f"[scale] world {scenario} x{n}: {time.monotonic() - t0:.1f} s "
+          "from start to end")
+    out = []
+    for _, stem in runs:
+        with open(stem + ".json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _scale_mesh(n, rank, coord, backend="gloo"):
+    """This child's Mesh: n gloo ranks on cuda:0 (two or more ranks can
+    share one card only over gloo), a named backend's world of one, or a
+    world of one without a process group."""
+    from spgan_tpu_torch.parallel.mesh import init_distributed
+
+    if n == 1 and backend is None:
+        return init_distributed(device="cuda:0")
+    return init_distributed(coord if n > 1 else None, n, rank,
+                            backend=backend, device="cuda:0",
+                            timeout_s=SCALE_GROUP_TIMEOUT_S)
+
+
+def _drive(fn, reps):
+    """(last result, ms of each call, launch counts per call): a warm-up
+    call, then every count set to 0, then `reps` synchronised calls."""
+    out = fn()
+    torch.cuda.synchronize()
+    _zero_counts()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, {k: v / reps for k, v in _counts().items()}
+
+
+def _sha(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _repo_path(*p):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *p)
+
+
+def _scale_sharded(mesh, label):
+    """The lattice-sharded engine at full width (spgan_run5k_bf16.yaml +
+    spgan_384x768.yaml: batch 16, bf16, patch_chunk 4) on fields from a
+    fixed seed; rank 0 also renders the folded engine on the same
+    fields."""
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.infer.engine import PanoramaEngine
+    from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
+    from spgan_tpu_torch.models.generator import Generator
+
+    cfg = load_config(_repo_path("configs", "model", "spgan_run5k_bf16.yaml"),
+                      _repo_path("configs", "test", "spgan_384x768.yaml"))
+    tp, task = cfg.train_params, cfg.task
+    g = Generator.from_config(cfg)
+    params = g.init(torch.Generator().manual_seed(0), device=mesh.device)
+    eng = PanoramaEngine(g=g, plan=build_close_loop_plan(g, task.height,
+                                                         task.width),
+                         batch=task.batch_size, patch_chunk=task.patch_chunk,
+                         grid_partial=tp.partial,
+                         compute_dtype=tp.compute_dtype, device=mesh.device)
+    fields = eng.sample_fields(torch.Generator(device=mesh.device)
+                               .manual_seed(1))
+    fn = eng.make_sharded_generate(mesh)
+    meta, ms, counts = _drive(lambda: fn(params, *fields), SCALE_REPS)
+    res = {"rendered": len(eng._render_idx), "chunks": fn.chunks,
+           "ss_layers": g.ss.n_layers, "ms": ms, "launches": counts,
+           "shape": list(meta.shape), "finite": bool(meta.isfinite().all()),
+           "sha": _sha([meta])}
+    print(f"[scale] {label} rank {mesh.rank}/{mesh.world_size}: sharded "
+          f"generate 384x768 batch {task.batch_size} bf16: "
+          f"{', '.join(f'{t:.1f}' for t in ms)} ms, {fn.chunks} chunks, "
+          f"B1 {counts['fused_sphere_conv_grouped']:.0f} a generate")
+    if mesh.is_root:
+        folded, fms, fcounts = _drive(
+            lambda: eng.generate_from_fields(params, *fields), SCALE_REPS)
+        res.update(exact=bool(torch.equal(meta, folded)),
+                   max_abs_err=float((meta - folded).abs().max()),
+                   ref_max=float(folded.abs().max()), folded_ms=fms,
+                   folded_launches=fcounts)
+        print(f"[scale] {label} rank 0: folded generate on the same fields "
+              f"{', '.join(f'{t:.1f}' for t in fms)} ms; sharded vs folded "
+              f"max |diff| {res['max_abs_err']:.3e} of max |folded| "
+              f"{res['ref_max']:.3e} (bit-identical: {res['exact']})")
+    del eng, params, fields, meta
+    torch.cuda.empty_cache()
+    return res
+
+
+def _step_setup(device):
+    """spgan.yaml (batch 16, float32) models, a state from seed 0 and one
+    global batch of the synthetic source."""
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.data.pipeline import TrainPipeline
+    from spgan_tpu_torch.models.discriminator import Discriminator
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.train.state import create_train_state
+
+    cfg = load_config(_repo_path("configs", "model", "spgan.yaml"))
+    g, d = Generator.from_config(cfg), Discriminator.from_config(cfg)
+    state = create_train_state(cfg, g, d, torch.Generator().manual_seed(0),
+                               device=device)
+    pipe = TrainPipeline(cfg, seed=0)
+    batch = next(pipe)
+    pipe.close()
+    return (cfg, g, d, state, torch.as_tensor(batch["patch"]),
+            torch.as_tensor(batch["ac_coords"]))
+
+
+def _deterministic():
+    """Deterministic kernels for the steps that are held against each
+    other: cuDNN's default algorithms and atomic adds give other bits on
+    each run (two runs of one R1+PPL step differ beyond rtol 5e-4 with
+    them), which would hide what is compared.  Ops without a
+    deterministic kernel warn (their names are printed) instead of
+    raising.  cuBLAS needs CUBLAS_WORKSPACE_CONFIG before its first call
+    (_scale_child sets it)."""
+    import warnings
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("once")
+    shown = warnings.showwarning
+
+    def show(message, category, *a, **k):
+        print(f"[scale] warning: {str(message)[:200]}")
+        shown(message, category, *a, **k)
+
+    warnings.showwarning = show
+
+
+def _flat_params(state):
+    """{tree: float32 numpy vector of its leaves} of G, D and G's EMA."""
+    from spgan_tpu_torch.tree import tree_leaves
+
+    return {name: torch.cat([t.detach().float().reshape(-1) for t in
+                             tree_leaves(getattr(state, name))]).cpu().numpy()
+            for name in ("params_g", "params_d", "params_g_ema")}
+
+
+def _steps(step, state, patch, ac, mesh, label, again=False, save=None):
+    """A plain and an R1+PPL step from `state` on this rank's rows of the
+    batch and of the draws of one generator seeded 1 (after one
+    untimed plain step): metrics, parameter digests, B3 launches and
+    ms of each; again: the R1+PPL step once more ("r1_ppl_again");
+    save: a path stem under which the parameters after each step, and
+    the start's, are written as `<stem>_<kind>.npz`."""
+    from spgan_tpu_torch.parallel.mesh import shard_batch
+    from spgan_tpu_torch.tree import tree_leaves
+
+    dev = mesh.device
+    if save:
+        np.savez(f"{save}_start.npz", **_flat_params(state))
+    patch = shard_batch(patch, mesh).to(dev)
+    ac = shard_batch(ac, mesh).to(dev)
+
+    def run(reg):
+        return step(state, patch, ac,
+                    torch.Generator(device=dev).manual_seed(1), do_r1=reg,
+                    do_ppl=reg)
+
+    run(False)
+    torch.cuda.synchronize()
+    out = {}
+    kinds = [("plain", False), ("r1_ppl", True)]
+    for kind, reg in kinds + ([("r1_ppl_again", True)] if again else []):
+        _zero_counts()
+        t0 = time.perf_counter()
+        s1, m = run(reg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[kind] = {
+            "metrics": {k: float(v) for k, v in m.items()}, "ms": ms,
+            "launches": _counts(),
+            "sha": _sha(tree_leaves([s1.params_g, s1.params_d,
+                                     s1.params_g_ema]))}
+        if save:
+            out[kind]["params"] = f"{save}_{kind}.npz"
+            np.savez(out[kind]["params"], **_flat_params(s1))
+        print(f"[scale] {label} rank {mesh.rank}/{mesh.world_size}: {kind} "
+              f"step {ms:.1f} ms, B3 "
+              f"{out[kind]['launches']['sphere_sample_taps']}")
+    return out
+
+
+def _ppl_floor(step, state, dev):
+    """The float noise floor of the PPL metrics in one process: the max
+    relative change of the per-sample path lengths of the one-process
+    step's PPL draws (at its start parameters) when they are taken as two
+    halves (a rank's batch), and on cuDNN's default algorithms instead of
+    its deterministic ones."""
+    from spgan_tpu_torch.parallel.mesh import Mesh
+    from spgan_tpu_torch.train.step import shard_draws
+    from spgan_tpu_torch.tree import tree_map
+
+    dr = step.draw(torch.Generator(device=dev).manual_seed(1), True)
+    pg = tree_map(lambda p: p.detach().requires_grad_(True), state.params_g)
+
+    def lengths(d):
+        return step.path_lengths(pg, d).detach().double()
+
+    full = lengths(dr)
+    halves = torch.cat([lengths(shard_draws(dr, Mesh(rank=r, world_size=2)))
+                        for r in range(2)])
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    default = lengths(dr)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def rel(a):
+        return float(((a - full).abs() / full.abs()).max())
+
+    return {"split": rel(halves), "algorithms": rel(default),
+            "mean_length": float(full.mean())}
+
+
+def _scale_child_nccl1(n, rank, coord, tmp):
+    """(a): an NCCL world of one: the sharded engine at full width against
+    the folded engine, one data-parallel step of spgan.yaml against the
+    plain TrainStep, and the plain TrainStep's plain and R1+PPL steps that
+    (d) is held against."""
+    from spgan_tpu_torch.parallel.mesh import close
+    from spgan_tpu_torch.train.step import make_train_step
+
+    mesh = _scale_mesh(1, 0, None, backend="nccl")
+    try:
+        res = {"backend": mesh.backend,
+               "sharded": _scale_sharded(mesh, "(a) nccl")}
+        _deterministic()
+        cfg, g, d, state, patch, ac = _step_setup(mesh.device)
+        res["dp"] = _steps(make_train_step(cfg, g, d, mesh=mesh), state,
+                           patch, ac, mesh, "(a) nccl data-parallel")
+        step = make_train_step(cfg, g, d)
+        res["plain"] = _steps(step, state, patch, ac, mesh,
+                              "(a) plain TrainStep", again=True,
+                              save=os.path.join(tmp, "one_process"))
+        res["ppl_floor"] = _ppl_floor(step, state, mesh.device)
+        return res
+    finally:
+        close(mesh)
+
+
+def _scale_child_sharded(n, rank, coord, tmp):
+    from spgan_tpu_torch.parallel.mesh import close
+
+    mesh = _scale_mesh(n, rank, coord)
+    try:
+        return _scale_sharded(mesh, f"(b) gloo x{n}")
+    finally:
+        close(mesh)
+
+
+def _b1_halo_check(fn, params, g):
+    """B1's float32 body at the halo path's own shapes (groups = the
+    lattice rows of one column, Bg = the batch) against its plain version,
+    on this rank's first chunk's tables: returns the max abs error."""
+    from spgan_tpu_torch.geometry.sphere_conv import _taps
+    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
+
+    G, ld = fn.nh, g.ss.local_dim
+    scale = g.ss.sphere_spec().conv_spec().scale
+    rng = np.random.RandomState(9)
+    atol, rtol = 2e-4 * math.sqrt(ld / 16), 1e-4  # phase 2's float32 limits
+    worst = 0.0
+    for tables, blk in zip(fn.tables[0], params["ss"]["blocks"]):
+        H = tables["y0"].shape[1]
+        x = torch.as_tensor(rng.randn(G * fn.batch, H, H, ld)
+                            .astype(np.float32)).cuda()
+        for wname, w9 in (
+                ("run's", _taps(blk["sphere"]["conv"]["weight"].float()
+                                * scale)[:, :ld].contiguous()),
+                ("random", torch.as_tensor(
+                    (rng.randn(9, ld, ld) / math.sqrt(9 * ld))
+                    .astype(np.float32)).cuda())):
+            worst = max(worst, check_close(
+                f"halo B1 float32 H={H} {wname} w9",
+                sk.fused_sphere_conv_grouped(x, tables, w9, G),
+                sk.fused_sphere_conv_plain(x, tables, w9, G), atol, rtol))
+    return worst
+
+
+def _scale_child_halo(n, rank, coord, tmp, *widths):
+    """(c): the halo path at full width (spgan.yaml, float32, window 35,
+    halo 29 latent columns, batch HALO_BATCH) from HALO_SEED at each
+    width; rank 0 saves its meta image; a world of one also holds B1 at
+    the path's shapes and renders the folded engine on the halo's own
+    fields."""
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.infer.engine import PanoramaEngine
+    from spgan_tpu_torch.infer.halo import make_width_sharded_generate
+    from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.parallel.mesh import close
+
+    mesh = _scale_mesh(n, rank, coord, backend=None if n == 1 else "gloo")
+    label = f"(c) gloo x{n}" if n > 1 else "(c) one rank"
+    # the N-rank vs one-rank check is bit for bit: cuDNN's default
+    # algorithms for the float32 transposed convs need not give the same
+    # bits twice (atomics), so these worlds take its deterministic ones
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = load_config(_repo_path("configs", "model", "spgan.yaml"))
+        tp = cfg.train_params
+        g = Generator.from_config(cfg)
+        params = g.init(torch.Generator().manual_seed(0), device=mesh.device)
+        res = {}
+        for w in map(int, widths):
+            plan = build_close_loop_plan(g, 384, w)
+            fn = make_width_sharded_generate(
+                g, plan, mesh, HALO_BATCH, tp.partial,
+                compute_dtype=tp.compute_dtype, device=mesh.device)
+            r = res[str(w)] = {"cols": plan.num_steps_w_min,
+                               "cols_per_dev": fn.cols_per_dev,
+                               "pad": fn.pad,
+                               "ss_layers": g.ss.n_layers,
+                               "window": plan.window, "halo": fn.halo_z}
+            if n == 1:
+                r["b1_err"] = _b1_halo_check(fn, params, g)
+            meta, r["ms"], r["launches"] = _drive(
+                lambda: fn(params, HALO_SEED), 2)
+            print(f"[scale] {label} rank {mesh.rank}: halo 384x{w} batch "
+                  f"{HALO_BATCH} float32: {fn.cols_per_dev} columns a rank "
+                  f"(pad {fn.pad}), {', '.join(f'{t:.1f}' for t in r['ms'])}"
+                  f" ms, B1 {r['launches']['fused_sphere_conv_grouped']:.0f} "
+                  "a generate")
+            if meta is None:
+                continue
+            r["finite"] = bool(meta.isfinite().all())
+            r["shape"] = list(meta.shape)
+            r["npy"] = os.path.join(tmp, f"halo_{w}_{n}.npy")
+            np.save(r["npy"], meta.cpu().numpy())
+            if n == 1:
+                eng = PanoramaEngine(g=g, plan=plan, batch=HALO_BATCH,
+                                     grid_partial=tp.partial,
+                                     compute_dtype=tp.compute_dtype,
+                                     device=mesh.device)
+                folded = eng.generate_from_fields(
+                    params, *fn.global_fields(HALO_SEED))
+                r["folded_err"] = float((meta - folded).abs().max())
+                r["folded_max"] = float(folded.abs().max())
+                print(f"[scale] {label}: halo vs the folded engine on the "
+                      f"halo's fields at 384x{w}: max |diff| "
+                      f"{r['folded_err']:.3e} of max |folded| "
+                      f"{r['folded_max']:.3e}; B1 at the halo's shapes vs "
+                      f"plain {r['b1_err']:.3e}")
+                del eng, folded
+            del fn, meta
+            torch.cuda.empty_cache()
+        return res
+    finally:
+        close(mesh)
+
+
+def _scale_child_dp(n, rank, coord, tmp):
+    """(d): the data-parallel plain and R1+PPL steps of spgan.yaml on n
+    gloo ranks."""
+    from spgan_tpu_torch.parallel.mesh import close
+    from spgan_tpu_torch.train.step import make_train_step
+
+    mesh = _scale_mesh(n, rank, coord)
+    try:
+        _deterministic()
+        cfg, g, d, state, patch, ac = _step_setup(mesh.device)
+        return _steps(make_train_step(cfg, g, d, mesh=mesh), state, patch,
+                      ac, mesh, f"(d) gloo x{n}",
+                      save=os.path.join(tmp, "dp") if rank == 0 else None)
+    finally:
+        close(mesh)
+
+
+def _scale_child_train(n, rank, coord, tmp, yaml_path, iters):
+    """(d): train() on n gloo ranks, each in its own working directory."""
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.parallel.mesh import close
+    from spgan_tpu_torch.train.loop import train
+    from spgan_tpu_torch.tree import tree_leaves
+
+    mesh = _scale_mesh(n, rank, coord)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        state = train(load_config(yaml_path), seed=0, max_iters=int(iters),
+                      device=mesh.device, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"[scale] (d) train() gloo x{n} rank {rank}: {iters} "
+              f"iterations in {wall:.1f} s")
+        return {"step": state.step, "wall_s": wall, "launches": _counts(),
+                "sha": _sha(tree_leaves([state.params_g, state.params_d])),
+                "files": sorted(os.path.relpath(os.path.join(dp, f))
+                                for dp, _, fs in os.walk(".") for f in fs)}
+    finally:
+        close(mesh)
+
+
+_SCALE_CHILDREN = {"nccl1": _scale_child_nccl1,
+                   "sharded": _scale_child_sharded,
+                   "halo": _scale_child_halo, "dp": _scale_child_dp,
+                   "train": _scale_child_train}
+
+
+def _scale_child(argv):
+    """One rank of a phase-13 world: python3 chip_smoke.py --scale-child
+    <scenario> <n> <rank> <port> <out.json> [args]."""
+    scenario, n, rank, port, out, *args = argv
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = _SCALE_CHILDREN[scenario](int(n), int(rank), f"127.0.0.1:{port}",
+                                    os.path.dirname(out), *args)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _b3_dp_check():
+    """B3 at a data-parallel rank's shapes (B 8 of the global 16, C 259,
+    float32 and bf16) against its plain version: exact."""
+    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
+
+    rng = np.random.RandomState(4)
+    worst = 0.0
+    for H in SS_SIZES:
+        tables, _ = training_crops(8, H, seed=100 + H)
+        x = torch.as_tensor(rng.randn(8, H, H, 259).astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = max(worst, check_close(
+                f"sphere_sample_taps B=8 H={H} {dtype}",
+                ss.sphere_sample_taps(x.to(dtype), tables),
+                ss.sphere_sample_taps_plain(x.to(dtype), tables), 0.0, 0.0))
+    print(f"[scale] B3 at a rank's shapes (B=8, C=259, H {list(SS_SIZES)}, "
+          f"f32 and bf16) vs plain: max abs err {worst:.3e} (exact)")
+    return worst
+
+
+def _metrics_agree(got, want, what):
+    """DP_RTOL / DP_ATOL for every metric, PATH_RTOL for the PPL penalty
+    of a step that ran PPL.  Returns {metric: relative difference}; every
+    metric out of bounds is named."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: metrics {sorted(got)} vs "
+                             f"{sorted(want)}")
+    rels, bad = {}, []
+    for k, v in want.items():
+        rtol = PATH_RTOL if k == "path" and v != 0 else DP_RTOL
+        rels[k] = abs(got[k] - v) / max(abs(v), 1e-12)
+        if not abs(got[k] - v) <= DP_ATOL + rtol * abs(v):
+            bad.append(f"{k}: {got[k]} vs {v} (rtol {rtol})")
+    if bad:
+        raise AssertionError(f"{what}: {'; '.join(bad)}")
+    return rels
+
+
+def _params_agree(got_npz, want_npz, start_npz, what):
+    """The parameters after a data-parallel step against one process's
+    (PARAMS_MAX, PARAMS_ATOL, PARAMS_FRAC; per tree): returns a summary
+    of each tree's max |diff|, share of parameters off by more than
+    PARAMS_ATOL, and |change difference| / |one process's change|."""
+    got, want, start = np.load(got_npz), np.load(want_npz), np.load(start_npz)
+    out, bad = [], []
+    for name in ("params_g", "params_d", "params_g_ema"):
+        diff = np.abs(got[name] - want[name])
+        frac = float((diff > PARAMS_ATOL).mean())
+        change = np.linalg.norm((want[name] - start[name]).astype(np.float64))
+        rel = float(np.linalg.norm(diff.astype(np.float64))
+                    / max(change, 1e-30))
+        out.append(f"{name} max {diff.max():.2e}, {frac:.2e} off > "
+                   f"{PARAMS_ATOL:.0e}, change {rel:.2e}")
+        if not (diff.max() < PARAMS_MAX and frac < PARAMS_FRAC):
+            bad.append(out[-1])
+    if bad:
+        raise AssertionError(f"{what}: parameters vs one process (max < "
+                             f"{PARAMS_MAX}, share off by > {PARAMS_ATOL} < "
+                             f"{PARAMS_FRAC}): {'; '.join(bad)}")
+    return "; ".join(out)
+
+
+def phase_scale(card_str):
+    """Phase 13: scale-out on torch.distributed, every world in child
+    processes on this one card: (a) an NCCL world of one, (b) the sharded
+    engine on 2 and 4 gloo ranks, (c) the halo path on 4 and 2 gloo ranks
+    against one rank, (d) data-parallel steps and train() on 2 gloo
+    ranks."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the card's memory to the children
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    try:
+        b3_err = _b3_dp_check()
+        # (a) -------------------------------------------------------
+        (a,) = _run_world("nccl1", 1, tmp)
+        sh = a["sharded"]
+        if a["backend"] != "nccl" or not sh["finite"]:
+            raise AssertionError(f"(a): backend {a['backend']}, finite "
+                                 f"{sh['finite']}")
+        sharded_launches = {}
+
+        def check_sharded(res, n, key):
+            r0 = res[0]
+            ref_max = r0["ref_max"]
+            chunks = -(-(-(-r0["rendered"] // n)) // 4)
+            want = chunks * r0["ss_layers"]
+            for r in res:
+                got = r["launches"]
+                if (r["chunks"] != chunks or got["fused_sphere_conv_grouped"]
+                        != want or got["sphere_sample_taps"]
+                        or got["fused_sphere_conv"]):
+                    raise AssertionError(f"sharded x{n}: {r['chunks']} "
+                                         f"chunks, launches {got} (want "
+                                         f"{chunks} chunks, B1 {want})")
+                if r["sha"] != r0["sha"]:
+                    raise AssertionError(f"sharded x{n}: the ranks' meta "
+                                         "images differ")
+            # bf16 renders: expected bit-identical (every rank renders the
+            # folded engine's own chunks); the bound allows one bf16
+            # rounding step (2^-8) of the largest value, should cuDNN pick
+            # another algorithm in another process
+            if not r0["finite"] or r0["max_abs_err"] > ref_max / 256:
+                raise AssertionError(f"sharded x{n} vs folded: max |diff| "
+                                     f"{r0['max_abs_err']} > {ref_max / 256}")
+            sharded_launches[key] = want
+            return want
+
+        if sh["rendered"] != 48:
+            raise AssertionError(f"{sh['rendered']} rendered positions, "
+                                 "want 48")
+        check_sharded([sh], 1, "nccl_1")
+        print(f"[scale] (a) {card_str}: NCCL world of one, sharded engine "
+              f"384x768 batch 16 bf16: {np.median(sh['ms']):.1f} ms a "
+              f"generate (folded {np.median(sh['folded_ms']):.1f} ms); "
+              f"bit-identical to folded: {sh['exact']}")
+        dp_a = max(_metrics_agree(a["dp"]["plain"]["metrics"],
+                                  a["plain"]["plain"]["metrics"],
+                                  "(a) nccl data-parallel plain step vs "
+                                  "plain").values())
+        # deterministic kernels, and a world of one reduces nothing: the
+        # same parameters bit for bit
+        if a["dp"]["plain"]["sha"] != a["plain"]["plain"]["sha"]:
+            raise AssertionError("(a) nccl data-parallel plain step: its "
+                                 "parameters differ from the plain "
+                                 "TrainStep's")
+        print(f"[scale] (a) {card_str}: NCCL world of one, data-parallel "
+              f"plain step {a['dp']['plain']['ms']:.1f} ms vs the plain "
+              f"TrainStep {a['plain']['plain']['ms']:.1f} ms (deterministic "
+              f"kernels); metrics worst rel diff {dp_a:.2e}; parameters "
+              "bit-identical")
+        p1, p2 = a["plain"]["r1_ppl"], a["plain"]["r1_ppl_again"]
+        again = max(abs(p2["metrics"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in p1["metrics"].items())
+        print(f"[scale] (a) the plain TrainStep's R1+PPL step run twice on "
+              f"deterministic kernels: metrics worst rel diff {again:.2e}, "
+              f"params equal: {p1['sha'] == p2['sha']} "
+              f"({p1['ms']:.1f} and {p2['ms']:.1f} ms)")
+        fl = a["ppl_floor"]
+        print(f"[scale] (a) the PPL path lengths in one process (mean "
+              f"{fl['mean_length']:.4f}): a batch of 8 vs two of 4 max rel "
+              f"{fl['split']:.2e}; cuDNN's default vs deterministic "
+              f"algorithms max rel {fl['algorithms']:.2e} (the floor under "
+              f"PATH_RTOL {PATH_RTOL:.0e}, the penalty ~2x the split "
+              f"floor: {2 * fl['split']:.2e})")
+        # (b) -------------------------------------------------------
+        for n, want in ((2, 24), (4, 12)):
+            res = _run_world("sharded", n, tmp)
+            if check_sharded(res, n, f"gloo_{n}") != want:
+                raise AssertionError(f"sharded x{n}: B1 per rank, want "
+                                     f"{want}")
+            print(f"[scale] (b) {card_str}: sharded engine on {n} gloo "
+                  f"ranks: {want} B1 launches a rank a generate, "
+                  f"{max(np.median(r['ms']) for r in res):.1f} ms a "
+                  f"generate ({SHARING}); vs folded max |diff| "
+                  f"{res[0]['max_abs_err']:.3e} (bit-identical: "
+                  f"{res[0]['exact']})")
+        # (c) -------------------------------------------------------
+        halo_launches = {}
+        (one,) = _run_world("halo", 1, tmp, args=list(HALO_WIDTHS))
+        for w, n in HALO_WIDTHS.items():
+            res = _run_world("halo", n, tmp, args=[w])
+            o, r0 = one[str(w)], res[0][str(w)]
+            for what, r in (("1 rank", o), (f"{n} ranks", r0)):
+                want = r["cols_per_dev"] * r["ss_layers"]
+                if (r["launches"]["fused_sphere_conv_grouped"] != want
+                        or not r["finite"]
+                        or r["shape"] != [HALO_BATCH, 581, w, 3]):
+                    raise AssertionError(f"halo 384x{w} {what}: {r}")
+            for rr in res[1:]:
+                if "npy" in rr[str(w)]:
+                    raise AssertionError("a rank other than 0 assembled")
+            cpd = -(-o["cols"] // n)
+            if (r0["cols_per_dev"], r0["pad"]) != (cpd, cpd * n - o["cols"]):
+                raise AssertionError(f"halo 384x{w} x{n}: {r0}")
+            got, ref = np.load(r0["npy"]), np.load(o["npy"])
+            if not np.array_equal(got, ref):
+                d = np.abs(got - ref)
+                raise AssertionError(
+                    f"halo 384x{w}: {n} ranks differ from one rank in "
+                    f"{int((d > 0).sum())} of {d.size} values, max |diff| "
+                    f"{float(d.max()):.3e} of max |ref| "
+                    f"{float(np.abs(ref).max()):.3e}")
+            # float32 (TF32 off): the folded engine groups other positions
+            # per call, so the sums run in another order: within 1e-3 of
+            # the largest value
+            if o["folded_err"] > 1e-3 * o["folded_max"]:
+                raise AssertionError(f"halo 384x{w} vs folded: "
+                                     f"{o['folded_err']}")
+            halo_launches[f"384x{w}_{n}"] = \
+                r0["launches"]["fused_sphere_conv_grouped"]
+            halo_launches[f"384x{w}_1"] = \
+                o["launches"]["fused_sphere_conv_grouped"]
+            print(f"[scale] (c) {card_str}: halo 384x{w} ({o['cols']} "
+                  f"columns, window {o['window']}, halo {o['halo']}) on {n} "
+                  f"gloo ranks, pad {r0['pad']}: bit-identical to one rank; "
+                  f"B1 {halo_launches[f'384x{w}_{n}']:.0f} a rank a generate"
+                  f" ({halo_launches[f'384x{w}_1']:.0f} on one); "
+                  f"{max(np.median(r[str(w)]['ms']) for r in res):.1f} ms a "
+                  f"generate ({SHARING}), one rank "
+                  f"{np.median(o['ms']):.1f} ms")
+        b1_halo_err = max(one[str(w)]["b1_err"] for w in HALO_WIDTHS)
+        # (d) -------------------------------------------------------
+        res = _run_world("dp", 2, tmp)
+        dp_launches = {}
+        for kind, want in (("plain", 8), ("r1_ppl", 12)):
+            ref = a["plain"][kind]
+            for r in res:
+                got = r[kind]["launches"]
+                if (got["sphere_sample_taps"] != want
+                        or got["fused_sphere_conv_grouped"]
+                        or got["fused_sphere_conv"]):
+                    raise AssertionError(f"dp {kind}: launches {got}, want "
+                                         f"B3 {want}")
+                rels = _metrics_agree(r[kind]["metrics"], ref["metrics"],
+                                      f"(d) 2-rank {kind} step")
+            others = max(v for k, v in rels.items() if k != "path")
+            if res[1][kind]["sha"] != res[0][kind]["sha"]:
+                raise AssertionError(f"dp {kind}: the ranks' parameters "
+                                     "differ")
+            params = _params_agree(res[0][kind]["params"], ref["params"],
+                                   os.path.join(tmp,
+                                                "one_process_start.npz"),
+                                   f"(d) 2-rank {kind} step")
+            dp_launches[kind] = want
+            print(f"[scale] (d) {card_str}: data-parallel {kind} step on 2 "
+                  f"gloo ranks (batch 16, 8 a rank, float32): "
+                  f"{max(r[kind]['ms'] for r in res):.1f} ms ({SHARING}), "
+                  f"one process {ref['ms']:.1f} ms; metrics vs one process: "
+                  f"worst rel diff {others:.2e} (rtol {DP_RTOL:.0e}, atol "
+                  f"{DP_ATOL:.0e}), the PPL penalty {rels['path']:.2e} (rtol "
+                  f"{PATH_RTOL:.0e}); equal parameter digests; parameters "
+                  f"vs one process: {params}; B3 {want} a rank")
+        yaml_path = _edited_yaml(
+            _repo_path("configs", "model", "spgan_run5k.yaml"),
+            os.path.join(tmp, "scale_run5k.yaml"),
+            {"data_params": {"source": "synthetic", "folder": "unused"},
+             "log_params": {"log_tick": 2, "save_tick": 4}})
+        cwds = [os.path.join(tmp, f"rank{r}") for r in range(2)]
+        for c in cwds:
+            os.makedirs(c)
+        res = _run_world("train", 2, tmp, args=[yaml_path, 4], cwds=cwds)
+        ckpt = os.path.join(cwds[0], "logs", "scale_run5k", "ckpt")
+        if (res[0]["sha"] != res[1]["sha"] or res[1]["files"]
+                or "logs/scale_run5k/ckpt/4.pt" not in res[0]["files"]
+                or any(r["step"] != 4 for r in res)
+                or any(r["launches"]["sphere_sample_taps"] != 32
+                       for r in res)):
+            raise AssertionError(f"train() on 2 ranks: {res}")
+        print(f"[scale] (d) {card_str}: train() on 2 gloo ranks, 4 "
+              f"iterations of spgan_run5k.yaml (synthetic source): "
+              f"{max(r['wall_s'] for r in res):.1f} s ({SHARING}); equal "
+              f"parameters; only rank 0 wrote ({len(res[0]['files'])} "
+              "files, checkpoint 4); B3 32 a rank")
+        out = os.path.join(tmp, "render")
+        manager, per_batch = run_cli(
+            ["--model-config", yaml_path, "--test-config",
+             _repo_path("configs", "test", "spgan_384x768.yaml"),
+             "--ckpt", ckpt, "--num-gen", "16", "--save-root", out], 48)
+        pngs = sorted(os.listdir(out))
+        if len(pngs) != 16 or png_size(os.path.join(out, pngs[0])) != (768,
+                                                                      384):
+            raise AssertionError(f"render of rank 0's checkpoint: {pngs}")
+        print(f"[scale] (d) the infer CLI rendered 16 PNGs from rank 0's "
+              f"checkpoint directory, {per_batch} B1 launches a batch")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[scale] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"sharded_launches_per_rank": sharded_launches,
+            "halo_launches_per_rank": halo_launches,
+            "halo_f32_max_abs_err": b1_halo_err,
+            "dp_launches_per_rank_step": dp_launches,
+            "dp_b8_max_abs_err": b3_err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import spgan_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card_str = card()
@@ -2712,6 +3529,7 @@ def main():
     options = phase_train_options(card_str, plain_step_ms)
     fid = phase_fid(card_str)
     served = phase_serve(card_str)
+    scale = phase_scale(card_str)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -2755,6 +3573,13 @@ def main():
             line[-1]["serve_cached_launches"] = served["cached"]
             line[-1]["interactive_launches_per_render"] = \
                 served["per_render"]
+            # phase 13, per rank per generate: the sharded engine (NCCL's
+            # world of one, 2 and 4 gloo ranks) and the halo path (each
+            # width on its ranks and on one); the float32 body at the
+            # halo's shapes vs the plain version
+            for k in ("sharded_launches_per_rank", "halo_launches_per_rank",
+                      "halo_f32_max_abs_err"):
+                line[-1][k] = scale[k]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -2776,6 +3601,10 @@ def main():
         # training iterations
         "fid_tick_launches": fid["tick_launches"],
         "fid_train_launches": fid["train_launches"],
+        # phase 13: per rank per data-parallel step (2 gloo ranks, 8 rows
+        # each), and exactness at a rank's batch of 8
+        "dp_launches_per_rank_step": scale["dp_launches_per_rank_step"],
+        "dp_b8_max_abs_err": scale["dp_b8_max_abs_err"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)
@@ -2791,6 +3620,7 @@ def main():
         "bound_by": sample[35]["bound_by"],
         "library_ms": sum(r["library_ms"] for r in sample.values()),
     })
+    print(f"[env] whole script {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card_str)
     print(json.dumps({"ok": True, "device": {
@@ -2800,4 +3630,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scale-child"]:
+        sys.exit(_scale_child(sys.argv[2:]))
     sys.exit(main())

@@ -12,7 +12,9 @@ close-loop and planar lattices) and everything it runs, the inference CLI
 (``python -m spgan_tpu_torch.infer``, test.py's counterpart) and the
 training CLI (``python -m spgan_tpu_torch.train``, train.py's counterpart:
 yaml configs, the synthetic, npy and spr data sources, checkpoints with
-resume).  This package imports torch and never jax, and nothing of
+resume), and scale-out (``parallel/``: one process per card on
+torch.distributed, the sharded and halo engines, data-parallel
+training).  This package imports torch and never jax, and nothing of
 ``spgan_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

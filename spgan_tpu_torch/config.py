@@ -152,7 +152,9 @@ class TaskConfig:
     seeds: bool = False
     # how many lattice positions are folded into one generator batch
     patch_chunk: int = 4
-    # "folded" (one device); "sharded" and "halo" are not ported (A12)
+    # "folded" (one device), "sharded" (the lattice over the ranks of a
+    # torch.distributed world) or "halo" (close-loop fields split by width
+    # over the ranks, halos on a ring)
     engine: str = "folded"
 
 

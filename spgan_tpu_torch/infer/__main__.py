@@ -8,7 +8,8 @@ flag):
         [--exp-suffix S] [--override-save-idx I] [--inter-ckpt PATH] \\
         [--dump-vars] [--save_all_space] [--inv-records A:B \\
         --inv-placements x,y] [--profile-dir DIR] [--clear-fid-cache] \\
-        [--interactive] [--debug] [--device cuda|cpu]
+        [--interactive] [--debug] [--engine folded|sharded|halo] \\
+        [--device cuda|cpu]
 
 Runs on cuda unless --device cpu.  Without --ckpt (or with --random-init)
 the generator has random weights from the seed.  --ckpt takes an .npz
@@ -17,6 +18,14 @@ or the checkpoint directory (or one checkpoint file) of a training run of
 the port (python -m spgan_tpu_torch.train); not an Orbax directory.
 --interactive (or task.interactive) runs the editing REPL
 (infer/interactive.py) on stdin instead of the batches; batch_size 1.
+
+--engine sharded (the lattice split over the ranks) and halo (close-loop
+fields split by width, for panoramas wider than one card holds) run one
+process per card under torchrun, and in a world of one without it:
+
+    torchrun --nproc-per-node 4 -m spgan_tpu_torch.infer ... --engine halo
+
+Every rank renders with the same seed; only rank 0 writes.
 """
 import argparse
 import glob
@@ -28,10 +37,10 @@ import torch
 
 from spgan_tpu_torch.compat.load import load_generator_params
 from spgan_tpu_torch.config import load_config
-from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.infer.interactive import run_interactive
 from spgan_tpu_torch.infer.managers import save_image_batch
 from spgan_tpu_torch.infer.testing_vars import TestingVars, load_record
+from spgan_tpu_torch.parallel.mesh import close, init_distributed
 from spgan_tpu_torch.utils.flops import generator_flops, pretty
 from spgan_tpu_torch.utils.misc import import_func, manually_seed
 
@@ -77,7 +86,9 @@ def parse_args(argv=None):
                     help="remove the cached FID statistics (.fid-cache/)")
     ap.add_argument("--engine", default=None,
                     choices=["folded", "sharded", "halo"],
-                    help="override task.engine (only folded is ported)")
+                    help="override task.engine: folded (one card), "
+                         "sharded or halo (one process per card under "
+                         "torchrun, or a world of one)")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace of one batch "
                          "(the second when more than one runs) here")
@@ -103,13 +114,24 @@ def _inv_records(args):
 def main(argv=None):
     """Run the CLI; returns the manager (None with --calc-flops)."""
     args = parse_args(argv)
-    dev = resolve(args.device)
+    mesh = init_distributed(device=args.device)  # torchrun's world, or one
+    try:
+        return _run(args, mesh)
+    finally:
+        close(mesh)
+
+
+def _run(args, mesh):
+    dev = mesh.device
     cfg = load_config(args.model_config, args.test_config)
     if args.interactive:
         cfg.task.interactive = True
     if cfg.task.interactive and cfg.task.batch_size != 1:
         raise ValueError("interactive editing expects task.batch_size 1, "
                          f"got {cfg.task.batch_size}")
+    if cfg.task.interactive and mesh.world_size > 1:
+        raise ValueError("interactive editing runs in one process, not in "
+                         f"a world of {mesh.world_size}")
     if args.num_gen is not None:
         cfg.task.num_gen = args.num_gen
     if args.override_save_idx is not None:
@@ -153,7 +175,7 @@ def main(argv=None):
 
     manager = import_func(cfg.task.task_manager)(
         g=g, params_ema=params_ema, config=cfg, save_root=save_root,
-        device=dev)
+        device=dev, mesh=mesh)
     manager.task_specific_init(seed=seed)
 
     if cfg.task.interactive:
@@ -185,13 +207,16 @@ def main(argv=None):
                     f"no .npz TestingVars found under {args.inter_ckpt}")
             n_batches = min(n_batches, len(inter_ckpt_paths))
 
+    root = mesh.is_root
+
     def save_cropped(meta):
         cropped = manager.engine.crop_to_target(meta)
-        save_image_batch(cropped, save_root, manager.cur_global_id)
+        if root:
+            save_image_batch(cropped, save_root, manager.cur_global_id)
         manager.cur_global_id += cropped.shape[0]
 
     profile_batch = None
-    if args.profile_dir is not None:
+    if args.profile_dir is not None and root:
         profile_batch = 1 if n_batches > 1 else 0
     prof = None
     try:
@@ -219,9 +244,10 @@ def main(argv=None):
             elif args.dump_vars:
                 tv = manager.create_vars(k)
                 meta = manager.generate_with_vars(tv)
-                os.makedirs(save_root, exist_ok=True)
-                tv.save(os.path.join(save_root,
-                                     f"{manager.cur_global_id:06d}_vars.npz"))
+                if root:
+                    os.makedirs(save_root, exist_ok=True)
+                    tv.save(os.path.join(
+                        save_root, f"{manager.cur_global_id:06d}_vars.npz"))
                 save_cropped(meta)
             else:
                 manager.run_next(k, save=not args.speed_benchmark,
@@ -244,7 +270,7 @@ def main(argv=None):
             # the traced batch raised: close the profiler all the same
             prof.__exit__(None, None, None)
 
-    if args.speed_benchmark:
+    if args.speed_benchmark and root:
         mean, std = manager.get_exec_time_stats()
         per_img = mean / batch
         out_dir = os.path.join("logs-quant", "benchmark_results")

@@ -19,6 +19,11 @@ One `generate` call
 The sphere grids and row-offset tables depend only on the lattice plan, so
 they are computed once, at construction, on the host in float32 (as the
 JAX package computes them) and kept on the device.
+
+`make_sharded_generate(mesh)` splits the rendered lattice positions over
+the ranks of a torch.distributed world (the JAX package's shard_map over
+the mesh): each rank renders its whole chunks, the patches are
+all-gathered and every rank scatters the same meta image.
 """
 from __future__ import annotations
 
@@ -35,8 +40,48 @@ from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
 from spgan_tpu_torch.infer.stitcher import LatticePlan
 from spgan_tpu_torch.models.generator import (Generator, skip_margin,
                                               tables_to)
+from spgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def render_patches(g: Generator, params, styles, gz, z_src, coords_src,
+                   noises_src, z_starts, noise_starts, grids, tables,
+                   skip_tables, skip_margins, *, batch: int, win: int,
+                   out_sizes, cdt, ss_maps=()) -> torch.Tensor:
+    """Render len(z_starts) lattice positions x `batch` panoramas in ONE
+    folded generator call: the shared body of the engine, its
+    lattice-sharded form and the width-sharded halo path
+    (infer/halo.py).  Sample q*batch + b is panorama b at the q-th
+    position (chunk-major fold).
+
+    z_starts (chunk, 2) and noise_starts (per layer (chunk, 2)) are start
+    indices into the (padded or halo-extended) z / coords / noise fields;
+    grids, tables and skip_tables hold the chunk's positions in order.
+    ss_maps: the SS noise maps (B, s, s, 1), the same at every position.
+    Returns (chunk, batch, patch, patch, 3) in `cdt`."""
+    B, chunk = batch, len(z_starts)
+    zw = torch.stack([z_src[:, r:r + win, c:c + win] for r, c in z_starts])
+    zw = zw.reshape(chunk * B, win, win, -1).to(cdt)
+    cw = torch.stack([coords_src[r:r + win, c:c + win]
+                      for r, c in z_starts])
+    cw = cw.repeat_interleave(B, dim=0)           # (chunk*B, win, win, 3)
+    layer_noises = []
+    for li, sz in enumerate(out_sizes):
+        nw = torch.stack([noises_src[li][:, r:r + sz, c:c + sz]
+                          for r, c in noise_starts[li]])
+        layer_noises.append(nw.reshape(chunk * B, sz, sz, 1).to(cdt))
+    gz_t = gz.repeat(chunk, 1).to(cdt)
+    styles_t = styles.repeat(chunk, 1, 1).to(cdt)
+    # the chunk-major fold order of zw: position q's samples take the B
+    # maps in order
+    ss_noises = [m.repeat(chunk, 1, 1, 1).to(cdt) for m in ss_maps]
+    structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
+                           groups=chunk, noises=ss_noises or None)
+    img = g.ts.synthesize(params["ts"], structure, styles_t, layer_noises,
+                          skip_tables, skip_margins, groups=chunk)
+    patch_sz = out_sizes[-1]
+    return img.reshape(chunk, B, patch_sz, patch_sz, 3)
 
 
 @dataclass
@@ -130,50 +175,33 @@ class PanoramaEngine:
 
     # ----------------------------------------------------------------
     def render_chunk(self, params, styles, gz, z_pad, coords_pad, noises_pad,
-                     ci: int, ss_maps=()) -> torch.Tensor:
-        """Render rendered-positions [ci*chunk, (ci+1)*chunk) x `batch`
-        panoramas in ONE folded generator call (chunk-major fold: sample
-        q*batch + b is panorama b at the q-th position); ss_maps: the SS
-        noise maps (B, s, s, 1), the same at every position.  Returns
-        (chunk, batch, patch, patch, 3) in the compute dtype."""
+                     sel, ss_maps=()) -> torch.Tensor:
+        """Render a chunk of rendered positions x `batch` panoramas in ONE
+        folded generator call (render_patches): sel holds the chunk's
+        rendered-position indices (arange(ci*chunk, (ci+1)*chunk) for
+        chunk ci; the sharded engine's padded chunks repeat the last).
+        Returns (chunk, batch, patch, patch, 3) in the compute dtype."""
         plan = self.plan
-        g = self.g
-        B, chunk, win = self.batch, self.patch_chunk, plan.window
-        cdt = _DTYPES[self.compute_dtype]
-        sl = slice(ci * chunk, (ci + 1) * chunk)
-        pos = self._render_idx[sl]
+        idx = torch.as_tensor(sel, device=self.device)
 
-        zw = torch.stack([z_pad[:, r:r + win, c:c + win]
-                          for r, c in plan.z_starts[pos]])
-        zw = zw.reshape(chunk * B, win, win, -1).to(cdt)
-        cw = torch.stack([coords_pad[r:r + win, c:c + win]
-                          for r, c in plan.z_starts[pos]])
-        cw = cw.repeat_interleave(B, dim=0)           # (chunk*B, win, win, 3)
-        layer_noises = []
-        for li, sz in enumerate(plan.geom.outfeat_sizes):
-            nw = torch.stack([noises_pad[li][:, r:r + sz, c:c + sz]
-                              for r, c in plan.noise_starts[li][pos]])
-            layer_noises.append(nw.reshape(chunk * B, sz, sz, 1).to(cdt))
-
-        grids = [gr[sl] for gr in self._ss_grids]
-        tables = [{k: v[sl] for k, v in t.items()} for t in self._ss_tables]
-        skip_tables = [{k: v[sl] for k, v in t.items()}
-                       for t in self._skip_tables]
-        gz_t = gz.repeat(chunk, 1).to(cdt)
-        styles_t = styles.repeat(chunk, 1, 1).to(cdt)
-        # the chunk-major fold order of zw: position q's samples take the
-        # B maps in order
-        ss_noises = [m.repeat(chunk, 1, 1, 1).to(cdt) for m in ss_maps]
-        structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
-                               groups=chunk, noises=ss_noises or None)
-        img = g.ts.synthesize(params["ts"], structure, styles_t, layer_noises,
-                              skip_tables, self._skip_margins, groups=chunk)
-        patch_sz = plan.geom.outfeat_sizes[-1]
-        return img.reshape(chunk, B, patch_sz, patch_sz, 3)
+        def take(t):
+            return t.index_select(0, idx)
+        pos = self._render_idx[sel]
+        return render_patches(
+            self.g, params, styles, gz, z_pad, coords_pad, noises_pad,
+            plan.z_starts[pos], [s[pos] for s in plan.noise_starts],
+            [take(gr) for gr in self._ss_grids],
+            [{k: take(v) for k, v in t.items()} for t in self._ss_tables],
+            [{k: take(v) for k, v in t.items()} for t in self._skip_tables],
+            self._skip_margins, batch=self.batch, win=plan.window,
+            out_sizes=plan.geom.outfeat_sizes,
+            cdt=_DTYPES[self.compute_dtype], ss_maps=ss_maps)
 
     @torch.inference_mode()
-    def _render(self, params, gl, z_field, noises) -> torch.Tensor:
-        """(len(_render_idx), B, patch, patch, 3) float32 patches."""
+    def _render(self, params, gl, z_field, noises, chunks=None
+                ) -> torch.Tensor:
+        """(rendered positions, B, patch, patch, 3) float32 patches of every
+        chunk in order, or of `chunks` (render_chunk's sel, in order)."""
         plan = self.plan
         n_ts = len(plan.noise_sizes)
         ss_maps, noises = noises[n_ts:], noises[:n_ts]
@@ -188,11 +216,14 @@ class PanoramaEngine:
             z_pad, coords_pad, noises_pad = z_field, self._coords_field, noises
         styles = self.g.build_styles(params, gl)      # (B, n_latent, D)
         gz = gl[:, 0]
-        n_chunks = len(self._render_idx) // self.patch_chunk
+        if chunks is None:
+            chunk = self.patch_chunk
+            chunks = [np.arange(ci * chunk, (ci + 1) * chunk)
+                      for ci in range(len(self._render_idx) // chunk)]
         return torch.cat([
             self.render_chunk(params, styles, gz, z_pad, coords_pad,
-                              noises_pad, ci, ss_maps).float()
-            for ci in range(n_chunks)])
+                              noises_pad, sel, ss_maps).float()
+            for sel in chunks])
 
     def _scatter(self, patches: torch.Tensor,
                  meta: Optional[torch.Tensor] = None,
@@ -222,6 +253,32 @@ class PanoramaEngine:
                 meta[:, rows, c:] = patch[:, :, :split]
                 meta[:, rows, :patch_sz - split] = patch[:, :, split:]
         return meta
+
+    def make_sharded_generate(self, mesh: Mesh):
+        """fn(params, gl, z_field, noises) -> the meta image (B, meta_h,
+        meta_w, 3), the same on every rank (the JAX engine's
+        make_sharded_generate).  The rendered positions are padded, by
+        repeating the last, to the same whole number of patch_chunk chunks
+        a rank; each rank renders only its chunks (fn.chunks of them), the
+        patches are all-gathered, the padding dropped, and every rank
+        scatters in the reference's overwrite order.  Every rank passes
+        the same fields.  A chunk without padding is one of the folded
+        engine's own chunks, so its patches are the folded engine's."""
+        n_r, chunk = len(self._render_idx), self.patch_chunk
+        per_rank = -(-n_r // mesh.world_size)
+        per_rank = -(-per_rank // chunk) * chunk
+        sel = np.minimum(np.arange(mesh.rank * per_rank,
+                                   (mesh.rank + 1) * per_rank), n_r - 1)
+        chunks = [sel[q * chunk:(q + 1) * chunk]
+                  for q in range(per_rank // chunk)]
+
+        @torch.inference_mode()
+        def generate(params, gl, z_field, noises) -> torch.Tensor:
+            patches = self._render(params, gl, z_field, noises, chunks)
+            return self._scatter(all_gather_rows(patches, mesh)[:n_r])
+
+        generate.chunks = len(chunks)
+        return generate
 
     # ----------------------------------------------------------------
     def generate(self, params, gen: torch.Generator) -> torch.Tensor:

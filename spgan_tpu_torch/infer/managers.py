@@ -3,6 +3,13 @@
 test_managers/base_test_manager.py:147-159), with the --speed-benchmark
 timing of the reference's test.py:84-91 (per-call wall time ended by a
 device synchronise, the first 10 calls discarded as warm-up).
+
+task.engine picks how run_next renders: "folded" (the engine on this
+process's device), "sharded" (the lattice split over the ranks of the
+manager's mesh, the meta image on every rank) or "halo" (close-loop
+only: the fields split by width over the ranks, infer/halo.py; the meta
+image on rank 0).  Every rank of a world runs the manager with the same
+seed; only rank 0 writes PNGs and the speed-benchmark files.
 """
 from __future__ import annotations
 
@@ -18,12 +25,23 @@ import torch
 from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.infer.engine import PanoramaEngine
+from spgan_tpu_torch.infer.halo import make_width_sharded_generate
 from spgan_tpu_torch.infer.stitcher import (LatticePlan,
                                             build_close_loop_plan,
                                             build_infinite_plan)
 from spgan_tpu_torch.infer.testing_vars import TestingVars
 from spgan_tpu_torch.models.generator import Generator
+from spgan_tpu_torch.parallel.mesh import Mesh, make_mesh
 from spgan_tpu_torch.utils.png import write_png
+
+ENGINES = ("folded", "sharded", "halo")
+
+
+def halo_seed(gen: torch.Generator) -> int:
+    """The seed of one halo batch, drawn from the manager's generator (the
+    same on every rank that seeded it alike)."""
+    return int(torch.randint(0, 2 ** 62, (), generator=gen,
+                             device=gen.device))
 
 
 def to_uint8(images: np.ndarray) -> np.ndarray:
@@ -57,9 +75,15 @@ class BaseManager:
     accum_exec_times: List[float] = field(default_factory=list)
     engine: Optional[PanoramaEngine] = None
     full_image: Optional[np.ndarray] = None  # last uncropped meta batch
+    # the world of task.engine sharded/halo (default: the process group's,
+    # else a world of one)
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
         self.device = resolve(self.device)
+        if self.mesh is None:
+            self.mesh = make_mesh(self.device)
+        self._sharded_fn = self._halo_fn = None
 
     @property
     def plan(self) -> LatticePlan:
@@ -70,24 +94,32 @@ class BaseManager:
             self.cur_global_id = self.config.task.init_index
 
     def _build_engine(self, close_loop: bool) -> PanoramaEngine:
-        task = self.config.task
-        if task.engine in ("sharded", "halo"):
-            raise NotImplementedError(
-                f"task.engine={task.engine!r} is not ported (ROADMAP A12); "
-                "the port runs the folded single-device engine")
-        if task.engine != "folded":
+        """The engine, and the sharded or halo callable of task.engine,
+        built once."""
+        task, tp = self.config.task, self.config.train_params
+        if task.engine not in ENGINES:
             raise ValueError(f"unknown task.engine {task.engine!r}; "
-                             "supported: folded")
+                             "supported: folded | sharded | halo")
+        if task.engine == "halo" and not close_loop:
+            raise ValueError(
+                "task.engine='halo' needs the close-loop manager "
+                "(width-sharded cylindrical fields)")
         build = build_close_loop_plan if close_loop else build_infinite_plan
         # parallel_batch_size (the reference's queue of patch calls batched
         # into one G call) is the engine's patch_chunk
-        return PanoramaEngine(
+        engine = PanoramaEngine(
             g=self.g, plan=build(self.g, task.height, task.width),
             batch=task.batch_size,
             patch_chunk=task.parallel_batch_size or task.patch_chunk,
-            grid_partial=self.config.train_params.partial,
-            compute_dtype=self.config.train_params.compute_dtype,
+            grid_partial=tp.partial, compute_dtype=tp.compute_dtype,
             device=self.device)
+        if task.engine == "sharded":
+            self._sharded_fn = engine.make_sharded_generate(self.mesh)
+        elif task.engine == "halo":
+            self._halo_fn = make_width_sharded_generate(
+                self.g, engine.plan, self.mesh, task.batch_size, tp.partial,
+                compute_dtype=tp.compute_dtype, device=self.device)
+        return engine
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -143,35 +175,50 @@ class BaseManager:
         return vars.meta_img
 
     def run_next(self, gen: torch.Generator, save: bool = True,
-                 write_gpu_time: bool = False) -> np.ndarray:
-        """One batch from `gen`: render, copy the meta image to the host
-        once, save the target crops (save=True).  write_gpu_time: time the
-        render, ended by a device synchronise, into accum_exec_times and
-        the per-day speed_benchmark_<date>.txt next to the outputs."""
+                 write_gpu_time: bool = False) -> Optional[np.ndarray]:
+        """One batch from `gen` through task.engine: render, copy the meta
+        image to the host once, save the target crops (save=True).
+        write_gpu_time: time the render, ended by a device synchronise,
+        into accum_exec_times and the per-day
+        speed_benchmark_<date>.txt next to the outputs.  Returns the
+        crops; None on the ranks other than 0 of the halo engine (rank 0
+        assembles)."""
         t0 = time.perf_counter()
-        meta = self.engine.generate(self.params_ema, gen)
+        if self._halo_fn is not None:
+            meta = self._halo_fn(self.params_ema, halo_seed(gen))
+        elif self._sharded_fn is not None:
+            meta = self._sharded_fn(self.params_ema,
+                                    *self.engine.sample_fields(gen))
+        else:
+            meta = self.engine.generate(self.params_ema, gen)
         if write_gpu_time:
-            if meta.is_cuda:
-                torch.cuda.synchronize(meta.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             self.accum_exec_times.append(dt)
-            if self.save_root is not None:
+            if self.save_root is not None and self.mesh.is_root:
                 os.makedirs(self.save_root, exist_ok=True)
                 day = datetime.date.today().strftime("%d-%m-%Y")
                 with open(os.path.join(self.save_root,
                                        f"speed_benchmark_{day}.txt"),
                           "a") as f:
                     f.write(f"{dt:.6f}")
+        self.cur_global_id += self.engine.batch
+        if meta is None:
+            self.full_image = None
+            return None
         self.full_image = meta.cpu().numpy()
         out = self.engine.crop_to_target(self.full_image)
-        if save and self.save_root is not None:
-            save_image_batch(out, self.save_root, self.cur_global_id)
-        self.cur_global_id += out.shape[0]
+        if save and self.save_root is not None and self.mesh.is_root:
+            save_image_batch(out, self.save_root,
+                             self.cur_global_id - out.shape[0])
         return out
 
     def save_full_imgs(self) -> None:
         """Save the last batch's uncropped meta images as <id>full.png
-        (after run_next: ids cur_global_id - batch + i)."""
+        (after run_next: ids cur_global_id - batch + i); rank 0 only."""
+        if not self.mesh.is_root:
+            return
         if self.full_image is None or self.save_root is None:
             raise ValueError("save_full_imgs needs a rendered batch and a "
                              "save_root")

@@ -20,7 +20,8 @@
 
 stddev_group: _smallest_divisor_at_least(batch=16, 4) returns 16 (the
 search range(4, 4) is empty), so the statistic spans the whole batch, as
-in the reference.
+in the reference; in data-parallel training, the global batch of every
+rank (apply's mesh).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.ops.linear import EqualConv2d, EqualLinear, fused_leaky_relu
 from spgan_tpu_torch.ops.upfirdn import Blur
+from spgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from spgan_tpu_torch.tree import tree_map
 
 
@@ -99,16 +101,34 @@ class ResBlock:
         return (out + sk(params["skip"], x)) / math.sqrt(2.0)
 
 
-def minibatch_stddev(x: torch.Tensor, group: int) -> torch.Tensor:
-    """x: (B,H,W,C).  Appends one channel of the per-group feature stddev
-    (biased variance over each group of B//group-strided samples)."""
+def _stddev_channel(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(B,H,W,1): the per-group feature stddev (biased variance over each
+    group of B//group-strided samples), averaged, tiled over the group."""
     b, h, w, c = x.shape
     g = min(b, group)
     y = x.reshape(g, b // g, h, w, c)
     var = y.var(dim=0, unbiased=False)
     std = torch.sqrt(var + 1e-8)
     mean_std = std.mean(dim=(1, 2, 3), keepdim=True)      # (b//g,1,1,1)
-    return torch.cat([x, mean_std.repeat(g, h, w, 1)], dim=-1)
+    return mean_std.repeat(g, h, w, 1)
+
+
+def minibatch_stddev(x: torch.Tensor, group: int,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """x: (B,H,W,C).  Appends one channel of the per-group feature stddev.
+
+    With a mesh of more than one rank, x is this rank's block of rows of
+    the global batch: the statistic is computed on the rows of every rank
+    (all_gather_rows, differentiable twice for R1), as the JAX step's D
+    sees the global batch under SPMD, and this rank's rows of it are
+    kept."""
+    if mesh is not None and mesh.world_size > 1:
+        n = x.shape[0]
+        stat = _stddev_channel(all_gather_rows(x, mesh), group)[
+            mesh.rank * n:(mesh.rank + 1) * n]
+    else:
+        stat = _stddev_channel(x, group)
+    return torch.cat([x, stat], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -225,17 +245,20 @@ class Discriminator:
 
     def apply(self, params: dict, img: torch.Tensor,
               ac_coords: Optional[torch.Tensor] = None,
-              train: bool = False) -> Dict[str, torch.Tensor]:
+              train: bool = False,
+              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """img: (B, H, W, 3) in [-1, 1]; ac_coords: (B, num_dir) labels,
-        required at training time with coord_use_pd.  Returns {"d_patch":
-        (B,1)} and, with coord_use_ac, "ac_coords_pred": (B, ac_out_dim)."""
+        required at training time with coord_use_pd; mesh: img is this
+        rank's block of a global batch (data-parallel training).  Returns
+        {"d_patch": (B,1)} and, with coord_use_ac, "ac_coords_pred": (B,
+        ac_out_dim)."""
         stem, blocks, final_conv, flat = self.plan()
         h = stem(params["stem"], img)
         last_feat = None
         for b, p in zip(blocks, params["blocks"]):
             last_feat = h          # the feature entering the last ResBlock
             h = b(p, h)
-        h = minibatch_stddev(h, self.stddev_group)
+        h = minibatch_stddev(h, self.stddev_group, mesh)
         h = final_conv(params["final_conv"], h)
         # the reference's NCHW flatten order
         h = h.permute(0, 3, 1, 2).reshape(h.shape[0], -1)

@@ -33,6 +33,7 @@ from spgan_tpu_torch.ops.modulated import (ModulatedConv2d, StyledConv, ToRGB,
                                            conv2d_nhwc)
 from spgan_tpu_torch.ops.spatial import (ConvSpec, derive_stitch_geometry,
                                          out_size_chain)
+from spgan_tpu_torch.parallel.mesh import all_reduce_mean
 from spgan_tpu_torch.tree import tree_map
 
 
@@ -215,13 +216,20 @@ class StructureSynthesizer:
 
     def diversity_z_loss(self, local_latent: torch.Tensor,
                          structure_latent: torch.Tensor,
-                         eps: float = 1e-5) -> torch.Tensor:
+                         eps: float = 1e-5, mesh=None) -> torch.Tensor:
         """Mode-seeking loss over the dual-latent pairs (0,1), (2,3), ...:
-        1 / (dist(structure) / dist(local latent) + eps)."""
+        1 / (dist(structure) / dist(local latent) + eps).  With a mesh of
+        more than one rank (data-parallel training, each rank an even
+        block of the global batch), each mean distance is the mean over
+        every rank's pairs."""
         def dist(v):
             if self.use_angular_div:
-                return angular_similarity(v[0::2], v[1::2]).mean()
-            return torch.abs(v[0::2] - v[1::2]).mean()
+                d = angular_similarity(v[0::2], v[1::2]).mean()
+            else:
+                d = torch.abs(v[0::2] - v[1::2]).mean()
+            if mesh is not None and mesh.world_size > 1:
+                d = all_reduce_mean(d, mesh)
+            return d
 
         return 1.0 / (dist(structure_latent) / dist(local_latent) + eps)
 
@@ -494,8 +502,8 @@ class Generator:
               ss_noises: Optional[Sequence[torch.Tensor]] = None,
               inject_index: Optional[torch.Tensor] = None,
               ss_tables_mode: str = "fused",
-              ts_skip_margins: Optional[Sequence[int]] = None,
-              compute_diversity: bool = False) -> Dict[str, torch.Tensor]:
+              ts_skip_margins: Optional[Sequence[int]] = None
+              ) -> Dict[str, torch.Tensor]:
         """One patch per sample: global_latent (B,2,D), local_latent
         (B,S,S,local_dim), coords (B,S,S,coord_dim) raw indices, cp one
         crop per sample (on local_latent's device, or the CPU), noises one
@@ -510,8 +518,9 @@ class Generator:
         row-offset tables do not describe (extrapolated crops).
         ts_skip_margins: static skip margins (training, no host sync);
         None measures them from the tables.  Returns {"gen":
-        (B,patch,patch,3), "structure_latent", "styles"} and, with
-        compute_diversity, "diversity_z_loss"."""
+        (B,patch,patch,3), "structure_latent", "styles"} (the training
+        step takes the diversity loss of the structure latent,
+        ss.diversity_z_loss)."""
         dev = local_latent.device
         sizes = self.ss.layer_sizes(local_latent.shape[1])
         grids = tables = skip_grids = skip_tables = None
@@ -538,11 +547,7 @@ class Generator:
         img = self.ts.synthesize(params["ts"], structure, styles, noises,
                                  skip_tables, ts_skip_margins,
                                  skip_grids=skip_grids)
-        out = {"gen": img, "structure_latent": structure, "styles": styles}
-        if compute_diversity and self.use_div_z:
-            out["diversity_z_loss"] = self.ss.diversity_z_loss(
-                local_latent, structure)
-        return out
+        return {"gen": img, "structure_latent": structure, "styles": styles}
 
     def ss_on_grids(self, params: dict, gz: torch.Tensor,
                     local_latent: torch.Tensor, coords: torch.Tensor,

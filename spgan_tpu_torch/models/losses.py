@@ -6,7 +6,7 @@ included) is plain tensor algebra, so the double backward exists.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +47,15 @@ def ppl_lengths(synth_fn: Callable, styles: torch.Tensor,
 
 
 def g_path_regularize(lengths: torch.Tensor, mean_path_length: torch.Tensor,
-                      decay: float = 0.01):
+                      decay: float = 0.01,
+                      batch_mean: Optional[torch.Tensor] = None):
     """Returns (penalty, new_mean); the running mean moves by
-    decay * (batch mean - mean), and the returned mean is detached."""
-    path_mean = mean_path_length + decay * (lengths.mean() - mean_path_length)
+    decay * (batch mean - mean), and the returned mean is detached.
+    batch_mean: the batch's mean path length when `lengths` are one rank's
+    block of the batch (data-parallel training); default lengths.mean()."""
+    if batch_mean is None:
+        batch_mean = lengths.mean()
+    path_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     penalty = (lengths - path_mean).square().mean()
     return penalty, path_mean.detach()
 

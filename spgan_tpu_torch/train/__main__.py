@@ -3,6 +3,7 @@
     python -m spgan_tpu_torch.train configs/model/spgan_run5k.yaml \\
         [--debug] [--seed N] [--max-iters N] [--baseline-ckpt PATH] \\
         [--profile-dir DIR --profile-start I --profile-iters N] \\
+        [--coordinator HOST:PORT --num-processes N --process-id I] \\
         [--device cuda|cpu]
 
 Trains the model of the yaml on its data source (data_params), writing
@@ -11,14 +12,24 @@ checkpoint there.  --baseline-ckpt starts the generator from an
 InfinityGAN baseline checkpoint (with train_params.freeze its loaded
 weights and the whole discriminator stay fixed).  --debug runs one
 iteration at batch <= 8 and writes nothing.  Runs on cuda unless
---device cpu.  Export the EMA generator of a run with
-spgan_tpu_torch.compat.load.save_params_npz, or pass its ckpt directory
-to python -m spgan_tpu_torch.infer --ckpt.
+--device cpu.
+
+Data-parallel training, one process per card: --coordinator,
+--num-processes and --process-id (train.py's flags) start the world
+(NCCL on cuda:<local rank>, gloo with --device cpu), or, without them,
+torchrun's environment does:
+
+    torchrun --nproc-per-node 4 -m spgan_tpu_torch.train <yaml>
+
+batch_size is the global batch; only rank 0 writes.  Export the EMA
+generator of a run with spgan_tpu_torch.compat.load.save_params_npz, or
+pass its ckpt directory to python -m spgan_tpu_torch.infer --ckpt.
 """
 import argparse
 import os
 
 from spgan_tpu_torch.config import load_config
+from spgan_tpu_torch.parallel.mesh import close, init_distributed
 from spgan_tpu_torch.train.loop import train
 
 
@@ -34,9 +45,11 @@ def main(argv=None):
                     help="transfer-learn from an InfinityGAN baseline "
                          "checkpoint (torch; its g_ema or g entry)")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host coordinator (not ported: ROADMAP A12)")
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+                    help="data-parallel world: rank 0's host:port")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="data-parallel world size (one process per card)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace of the "
                          "profiled iterations here")
@@ -51,19 +64,20 @@ def main(argv=None):
             not os.path.isfile(args.baseline_ckpt):
         raise FileNotFoundError(f"--baseline-ckpt {args.baseline_ckpt}: "
                                 "no such file")
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError("multi-process training (--coordinator, "
-                                  "--num-processes, --process-id) is not "
-                                  "ported (ROADMAP A12)")
     cfg = load_config(args.config)
     if args.debug:
         cfg.train_params.batch_size = min(cfg.train_params.batch_size, 8)
-    return train(cfg, debug=args.debug, seed=args.seed,
-                 max_iters=args.max_iters, device=args.device,
-                 baseline_ckpt=args.baseline_ckpt, profile_dir=args.profile_dir,
-                 profile_start=args.profile_start,
-                 profile_iters=args.profile_iters)
+    mesh = init_distributed(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device)
+    try:
+        return train(cfg, debug=args.debug, seed=args.seed,
+                     max_iters=args.max_iters, device=mesh.device,
+                     baseline_ckpt=args.baseline_ckpt,
+                     profile_dir=args.profile_dir,
+                     profile_start=args.profile_start,
+                     profile_iters=args.profile_iters, mesh=mesh)
+    finally:
+        close(mesh)
 
 
 if __name__ == "__main__":

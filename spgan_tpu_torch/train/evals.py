@@ -56,7 +56,8 @@ class TrainFID:
     against the pipeline's full images.  The real images are
     next(pipeline)["patch"] (["full"] for ext2); their statistics are
     cached under .fid-cache/<dataset>-<size>[-ext2]_spgan_tpu.pkl, so
-    only the first call draws from the pipeline.  After a call, .ms holds
+    only the first call draws from the pipeline (.drawn: the batches the
+    last call drew).  After a call, .ms holds
     the ms of its parts on the host clock: real_stats (cached or drawn
     and featurised), generate, features (the fakes'), frechet (their
     statistics and the distance)."""
@@ -76,6 +77,7 @@ class TrainFID:
         self.enlarge = 2 if ext2 else 1
         self.margins = None if ext2 else g.training_skip_margins()
         self.ms: Dict[str, float] = {}
+        self.drawn = 0
 
     @property
     def available(self) -> bool:
@@ -130,8 +132,11 @@ class TrainFID:
         ev = FIDEvaluator(self.inception_params, device=self.dev)
         modality = "full" if self.ext2 else "patch"
 
+        self.drawn = 0
+
         def real_batches():
             for _ in range(n_batches):
+                self.drawn += 1
                 yield next(self.pipeline)[modality]
 
         size_key = tp.full_size if self.ext2 else tp.patch_size

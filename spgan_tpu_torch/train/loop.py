@@ -33,6 +33,16 @@ uninterrupted one.  The FID ticks draw from streams of their own, (seed
 training pipeline (its first call takes n_fid_sample / batch_size
 batches of the stream, as in the JAX package), EXT2's from a second
 pipeline seeded seed + 7 with the full images.
+
+Data-parallel (a mesh of N ranks, one process each; the JAX loop's batch
+sharding over its mesh): the state is initialised, transferred and
+resumed as above, then broadcast from rank 0; every rank builds the same
+global batch from the same seeded pipeline and steps on its block of rows
+(with steps_per_call, each of the call's batches: JAX's dim-1 sharding of
+the stacked batches), so N ranks train on what one process trains on.
+Only rank 0 writes (checkpoints, logs, grids, the FID ticks and
+best.json) and only it profiles; the other ranks skip the training
+batches a FID tick drew and wait at a barrier after each writing tick.
 """
 from __future__ import annotations
 
@@ -51,6 +61,8 @@ from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.models.latents import LatentSampler
 from spgan_tpu_torch.ops.spatial import out_size_chain
+from spgan_tpu_torch.parallel.mesh import (Mesh, barrier, broadcast_int,
+                                           make_mesh, replicate, shard_batch)
 from spgan_tpu_torch.train.checkpoint import CheckpointManager, save_best
 from spgan_tpu_torch.train.state import TrainState, create_train_state
 from spgan_tpu_torch.train.step import _DTYPES, make_train_step
@@ -300,7 +312,8 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
           max_iters: Optional[int] = None, device=None,
           baseline_ckpt: Optional[str] = None,
           profile_dir: Optional[str] = None, profile_start: int = 3,
-          profile_iters: int = 5) -> TrainState:
+          profile_iters: int = 5, mesh: Optional[Mesh] = None
+          ) -> TrainState:
     """Train for min(iter, max_iters) iterations (resuming from the newest
     checkpoint under <log_dir>/<exp_name>/ckpt) on `device` (default
     cuda); returns the final state.  baseline_ckpt: transfer from an
@@ -312,16 +325,20 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
 
     With compute_dtype float32, TF32 is turned off for cuDNN convolutions
     and cuBLAS matmuls (PyTorch enables it for cuDNN by default), so the
-    step computes in float32 as the reference's float32 config does."""
+    step computes in float32 as the reference's float32 config does.
+    mesh: the data-parallel world (default: the initialised process
+    group's, else a world of one); device is this rank's."""
     tp, lp = cfg.train_params, cfg.log_params
     if tp.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     dev = resolve(device)
+    mesh = mesh if mesh is not None else make_mesh(dev)
+    multi = mesh.world_size > 1
     exp_root = os.path.join(cfg.log_dir, cfg.exp_name)
 
     writer = ckpt_mgr = None
-    if not debug:
+    if not debug and mesh.is_root:
         os.makedirs(exp_root, exist_ok=True)
         writer = _open_writer(exp_root)
         ckpt_mgr = CheckpointManager(os.path.join(exp_root, "ckpt"))
@@ -340,15 +357,19 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
         state = ckpt_mgr.restore(state)
         start_iter = state.step
         print(f" [*] Resumed from iter {start_iter}")
+    if multi:  # rank 0's state, initialised, transferred or resumed
+        state = replicate(state, mesh)
+        state.step = start_iter = broadcast_int(start_iter, mesh)
     k_steps = max(1, tp.steps_per_call)
-    step_fn = make_train_step(cfg, g, d, freeze_g_mask=freeze_g_mask)
+    step_fn = make_train_step(cfg, g, d, freeze_g_mask=freeze_g_mask,
+                              mesh=mesh)
     grids = (make_image_grids(cfg, g, seed, dev) if writer is not None
              else None)
     pipeline = make_train_pipeline(cfg, seed=seed)
     fid_eval = fid_ext2_eval = None
-    best_path = (None if debug
+    best_path = (None if ckpt_mgr is None
                  else os.path.join(ckpt_mgr.ckpt_dir, "best.json"))
-    best = None if debug else read_best(best_path)
+    best = None if ckpt_mgr is None else read_best(best_path)
 
     def snapshot(name, key, value):
         """A better FID: the snapshot `name` and best.json."""
@@ -367,14 +388,18 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
             torch.cuda.synchronize(dev)
 
     def on_dev(batch, key):
-        return torch.as_tensor(batch[key]).to(dev)
+        """This rank's rows of the global batch, on the device."""
+        return shard_batch(torch.as_tensor(batch[key]), mesh).to(dev)
 
     try:
-        if not debug:
+        if not debug and mesh.is_root:
             fid_eval, fid_ext2_eval = make_fid_evals(cfg, g, pipeline, seed,
                                                      dev)
+        # which ticks run, known on every rank (rank 0 runs them)
+        fid_on = broadcast_int(fid_eval is not None, mesh)
+        ext2_on = broadcast_int(fid_ext2_eval is not None, mesh)
         while it < total:
-            if (profile_dir is not None and prof is None
+            if (profile_dir is not None and mesh.is_root and prof is None
                     and prof_start is None
                     and it - start_iter >= profile_start):
                 from torch.profiler import ProfilerActivity, profile
@@ -413,14 +438,31 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                       f"{it}) written to {path}")
 
             if debug:
-                print(" [debug] one iteration OK —",
-                      {k: round(float(v), 4) for k, v in metrics.items()},
-                      flush=True)
+                if mesh.is_root:
+                    print(" [debug] one iteration OK —",
+                          {k: round(float(v), 4)
+                           for k, v in metrics.items()}, flush=True)
                 break
 
             def tick(n):
                 return crossed_tick(it, k, n)
 
+            def sync_ticks():
+                """After rank 0's ticks: the other ranks skip the training
+                batches its FID tick drew, and every rank meets at a
+                barrier after a writing tick."""
+                if fid_on and tick(lp.eval_tick):
+                    drawn = broadcast_int(fid_eval.drawn if mesh.is_root
+                                          else 0, mesh)
+                    for _ in range(0 if mesh.is_root else drawn):
+                        next(pipeline)
+                if (tick(lp.img_tick) or tick(lp.save_tick)
+                        or (ext2_on and tick(lp.fid_ext2_tick))):
+                    barrier(mesh)
+
+            if not mesh.is_root:
+                sync_ticks()
+                continue
             if tick(lp.log_tick):
                 now = time.perf_counter()
                 _log_tick(writer, it, total, {**metrics, **reg_carry},
@@ -453,8 +495,10 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                     and tick(TB_PARTITION_STEPS)):
                 writer.close()
                 writer = _open_writer(exp_root)
+            if multi:
+                sync_ticks()
     except Exception:
-        if not debug:
+        if not debug and mesh.is_root:
             os.makedirs(exp_root, exist_ok=True)
             with open(os.path.join(exp_root, "error-log.txt"), "a") as f:
                 f.write(traceback.format_exc() + "\n")
@@ -464,7 +508,7 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
             prof.__exit__(None, None, None)
             print(f" [!] Profiler window cut at iteration {it}; no trace "
                   "written")
-        elif profile_dir is not None and prof_start is None:
+        elif profile_dir is not None and prof_start is None and mesh.is_root:
             print(f" [!] Profiler window never opened: the loop ended at "
                   f"iteration {it}, before profile_start={profile_start} "
                   f"(counted from iteration {start_iter}); no trace written")

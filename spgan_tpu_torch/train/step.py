@@ -18,9 +18,20 @@ version on the CPU.  Every random draw of a step (latents, crop origins and
 jitter, the mixing coin, the inject index, the noise maps of each G forward
 and the PPL perturbation) comes from one function, ``TrainStep.draw``,
 which a caller may replace to feed known draws.
+
+Data-parallel (a mesh of N ranks, one process each; the JAX step's batch
+sharding): every rank draws the same global StepDraws and keeps its block
+of rows of each, takes its block of the real batch, and backpropagates
+its local-mean losses; the D's minibatch stddev and the batch means of
+the diversity loss and the PPL running mean span every rank's rows.  Each
+phase's gradients are all-reduced (one flat buffer, the sum over the
+ranks divided by N) before anything reads them (the grad norms, Adam's
+zero test, the R1 mask), so every rank applies the same update; the
+loss metrics are averaged over the ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -34,6 +45,8 @@ from spgan_tpu_torch.models.discriminator import Discriminator
 from spgan_tpu_torch.models.generator import Generator, pair_inputs, tables_to
 from spgan_tpu_torch.models.latents import LatentSampler
 from spgan_tpu_torch.ops.spatial import out_size_chain
+from spgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
+                                           all_reduce_mean_, shard_batch)
 from spgan_tpu_torch.train.state import (TrainState, ema_update, global_norm,
                                          lr_schedule_factor, make_optimizers)
 from spgan_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -70,16 +83,39 @@ def _with_grad(tree):
     return t, tree_leaves(t)
 
 
+def shard_draws(draws, mesh: Mesh):
+    """This rank's rows of every per-sample tensor of a StepDraws or
+    GDraws (the crop jitter and the inject index are shared)."""
+    def take(name, v):
+        if name in ("jitter", "inject"):
+            return v
+        if dataclasses.is_dataclass(v):
+            return shard_draws(v, mesh)
+        return shard_batch(v, mesh)
+
+    return dataclasses.replace(draws, **{
+        f.name: take(f.name, getattr(draws, f.name))
+        for f in dataclasses.fields(draws)})
+
+
 class TrainStep:
     """step(state, real_patch, real_ac, gen, do_r1, do_ppl) -> (state,
     metrics).  real_patch (B,P,P,3) in [-1,1] and real_ac (B,3) on the
-    state's device; gen a torch.Generator on that device (used by
-    ``draw``).  Metrics are 0-d tensors on the device (no host sync)."""
+    state's device (with a mesh: this rank's B/N rows of the global
+    batch); gen a torch.Generator on that device (used by ``draw``).
+    Metrics are 0-d tensors on the device (no host sync)."""
 
     def __init__(self, cfg: Config, g: Generator, d: Discriminator,
                  draw: Optional[Callable[..., StepDraws]] = None,
-                 freeze_g_mask: Optional[Any] = None):
+                 freeze_g_mask: Optional[Any] = None,
+                 mesh: Optional[Mesh] = None):
         tp = cfg.train_params
+        self.mesh = mesh if mesh is not None else Mesh()
+        # a process group (NCCL's world of one included) runs the
+        # collectives; the batch statistics gather only across ranks
+        self.multi = self.mesh.backend is not None
+        if self.mesh.world_size > 1:
+            self._check_split(cfg, g)
         self.cfg, self.g, self.d = cfg, g, d
         # a tree of python bools over params_g (True: the update is zeroed)
         self.freeze_g_mask = freeze_g_mask
@@ -96,6 +132,26 @@ class TrainStep:
                                g.ss.noise_sizes(self.sampler.local_shape()[0]))
         if draw is not None:
             self.draw = draw
+
+    def _check_split(self, cfg: Config, g: Generator) -> None:
+        """The global batches must split into whole blocks, even ones where
+        dual latents pair adjacent samples."""
+        tp, n = cfg.train_params, self.mesh.world_size
+        paired = g.use_div_z and tp.diversity_dual
+        batches = [("batch_size", tp.batch_size)]
+        if tp.path_regularize != 0:
+            batches.append((f"the PPL batch (batch_size {tp.batch_size} // "
+                            f"path_batch_shrink {tp.path_batch_shrink})",
+                            max(1, tp.batch_size // tp.path_batch_shrink)))
+        for what, b in batches:
+            if b % n:
+                raise ValueError(f"{what} = {b} does not split over {n} "
+                                 "ranks")
+            if paired and (b // n) % 2:
+                raise ValueError(
+                    f"{what} = {b} over {n} ranks gives {b // n} a rank: "
+                    "the diversity loss pairs adjacent samples, so each "
+                    "rank's block must be even")
 
     # ---------------------------------------------------------------- draws
     def draw_g(self, gen: torch.Generator, bsz: int) -> GDraws:
@@ -145,8 +201,10 @@ class TrainStep:
                            coords=coords, cp=cp, noises=dr.noises,
                            ss_noises=dr.ss_noises or None,
                            inject_index=dr.inject, ss_tables_mode="sample",
-                           ts_skip_margins=self.skip_margins,
-                           compute_diversity=compute_diversity)
+                           ts_skip_margins=self.skip_margins)
+        if compute_diversity and self.g.use_div_z:
+            out["diversity_z_loss"] = self.g.ss.diversity_z_loss(
+                ll, out["structure_latent"], mesh=self.mesh)
         out["ac_coords"] = ac
         return out
 
@@ -154,7 +212,8 @@ class TrainStep:
         """D at training time (the projection head reads the labels `ac`),
         in float32."""
         return {k: v.float() for k, v in
-                self.d.apply(params_d, img, ac_coords=ac, train=True).items()}
+                self.d.apply(params_d, img, ac_coords=ac, train=True,
+                             mesh=self.mesh).items()}
 
     def ac_loss(self, pred, label):
         tp = self.cfg.train_params
@@ -190,7 +249,7 @@ class TrainStep:
         tp = self.cfg.train_params
         pd, leaves = _with_grad(params_d)
         r1 = losses.d_r1_penalty(self.d.apply, pd, real, ac_coords=real_ac,
-                                 train=True)
+                                 train=True, mesh=self.mesh)
         loss = tp.r1 / 2.0 * r1 * tp.d_reg_every
         return (list(torch.autograd.grad(loss, leaves, allow_unused=True)),
                 r1.detach())
@@ -226,6 +285,12 @@ class TrainStep:
         grads = list(torch.autograd.grad(weighted, leaves, allow_unused=True))
         return grads, penalty.detach(), new_mean, plen.detach()
 
+    def _reduce(self, grads: List[Optional[torch.Tensor]]):
+        """The phase's gradients averaged over the ranks, in place."""
+        if self.multi:
+            all_reduce_mean_(grads, self.mesh)
+        return grads
+
     # ----------------------------------------------------------------- step
     def __call__(self, state: TrainState, real_patch: torch.Tensor,
                  real_ac: torch.Tensor, gen: torch.Generator,
@@ -233,6 +298,8 @@ class TrainStep:
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         tp = self.cfg.train_params
         dr = self.draw(gen, do_ppl)
+        if self.multi:
+            dr = shard_draws(dr, self.mesh)
         real = real_patch.to(self.cdt)
         zero = torch.zeros((), device=real.device)
         # the update rules of the JAX step: the lr factor of this
@@ -245,6 +312,7 @@ class TrainStep:
 
         grads, metrics = self.d_grads(state.params_g, state.params_d, real,
                                       real_ac, dr.d)
+        self._reduce(grads)
         with torch.no_grad():
             metrics["grad_norm/d"] = global_norm(grads)
             params_d, opt_d = self.opt_d.step(
@@ -254,6 +322,7 @@ class TrainStep:
         metrics["r1"] = zero
         if do_r1 and tp.r1 != 0:
             grads, metrics["r1"] = self.r1_grads(params_d, real, real_ac)
+            self._reduce(grads)
             with torch.no_grad():
                 # torch-Adam's graph membership in the R1 phase; SGD has
                 # no per-leaf state, so it takes no mask
@@ -264,6 +333,7 @@ class TrainStep:
                     active=active, **upd_d)
 
         grads, g_metrics = self.g_grads(state.params_g, params_d, dr.g)
+        self._reduce(grads)
         metrics.update(g_metrics)
         with torch.no_grad():
             gtree = tree_unflatten(state.params_g, grads)
@@ -278,10 +348,18 @@ class TrainStep:
         if do_ppl and tp.path_regularize != 0:
             grads, metrics["path"], mean_path, metrics["path_lengths"] = \
                 self.ppl_grads(params_g, dr, mean_path)
+            self._reduce(grads)
             with torch.no_grad():
                 params_g, opt_g = self.opt_g.step(
                     params_g, tree_unflatten(params_g, grads), opt_g,
                     **upd_g)
+        if self.multi:
+            # the loss metrics of each rank's rows, averaged (the grad
+            # norms are of the reduced gradients already)
+            keys = [k for k in metrics if not k.startswith("grad_norm")]
+            vals = torch.stack([metrics[k].float() for k in keys])
+            all_reduce_mean_([vals], self.mesh)
+            metrics.update(zip(keys, vals.unbind()))
         metrics["mean_path_length"] = mean_path
 
         with torch.no_grad():
@@ -291,10 +369,10 @@ class TrainStep:
                           opt_g=opt_g, opt_d=opt_d,
                           mean_path_length=mean_path), metrics
 
-    def ppl_penalty(self, params_g, dr: StepDraws, mean_path: torch.Tensor):
-        """(penalty, new running mean, mean path length) of the PPL phase:
-        path lengths of the texture synthesizer w.r.t. the styles, with the
-        structure latent computed outside the differentiated map."""
+    def path_lengths(self, params_g, dr: StepDraws) -> torch.Tensor:
+        """(pbsz,) path lengths of the PPL phase (the graph kept): the
+        texture synthesizer's w.r.t. the styles, with the structure latent
+        computed outside the differentiated map."""
         g = self.g
         gl, ll, coords, _, cp = self.g_inputs(dr.ppl)
         tables = g.ss.train_tables(cp, ll.shape[1])
@@ -310,13 +388,23 @@ class TrainStep:
                                    self.skip_margins)
 
         p = dr.ppl_noise
-        lengths = losses.ppl_lengths(
+        return losses.ppl_lengths(
             synth, styles, noise=p / math.sqrt(p.shape[1] * p.shape[2]))
-        penalty, new_mean = losses.g_path_regularize(lengths, mean_path)
+
+    def ppl_penalty(self, params_g, dr: StepDraws, mean_path: torch.Tensor):
+        """(penalty, new running mean, mean path length) of the PPL
+        phase."""
+        lengths = self.path_lengths(params_g, dr)
+        batch_mean = (all_reduce_mean(lengths.mean(), self.mesh)
+                      if self.multi else None)
+        penalty, new_mean = losses.g_path_regularize(lengths, mean_path,
+                                                     batch_mean=batch_mean)
         return penalty, new_mean, lengths.mean()
 
 
 def make_train_step(cfg: Config, g: Generator, d: Discriminator,
                     draw: Optional[Callable[..., StepDraws]] = None,
-                    freeze_g_mask: Optional[Any] = None) -> TrainStep:
-    return TrainStep(cfg, g, d, draw=draw, freeze_g_mask=freeze_g_mask)
+                    freeze_g_mask: Optional[Any] = None,
+                    mesh: Optional[Mesh] = None) -> TrainStep:
+    return TrainStep(cfg, g, d, draw=draw, freeze_g_mask=freeze_g_mask,
+                     mesh=mesh)

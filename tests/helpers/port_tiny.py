@@ -1,11 +1,11 @@
 """The tiny generator config the port's serving and editing tests share
 with tests/test_serve.py and tests/test_interactive.py (channel_base 48,
-2 SS layers, 128x672), for either package's Config, the port's
-parameter tree in the JAX package's layout, and the CPU budget those
-tests keep."""
+2 SS layers, 128x672), for either package's Config, the tiny training
+models of tests/test_torch_train.py, the port's parameter tree in the
+JAX package's layout, and the CPU budget those tests keep.  Imports no
+JAX at module level (the scale-out tests' child processes import it)."""
 import contextlib
 
-import jax
 import torch
 
 MODEL_YAML = """
@@ -33,6 +33,34 @@ def tiny(cfg, batch_size=1):
 def narrow(g):
     object.__setattr__(g.ts, "channel_base", 48)
     return g
+
+
+def narrow_d(d):
+    """A discriminator of 16 channels at every size."""
+    object.__setattr__(d, "channels", lambda: dict.fromkeys(
+        d.__class__.channels(d), 16))
+    return d
+
+
+def train_models(Config, Generator, Discriminator, batch_size=8):
+    """(cfg, G, D) of either package at tests/test_torch_train.py's tiny
+    training widths (channel_base 16, D channels 16, 1 SS layer), batch
+    `batch_size`."""
+    cfg = Config()
+    tp = cfg.train_params
+    tp.global_latent_dim = 32
+    tp.local_latent_dim = 16
+    tp.channel_multiplier = 1
+    tp.batch_size = batch_size
+    tp.n_mlp = 1
+    tp.ss_n_layers = 1
+    tp.path_batch_shrink = 2
+    g = Generator.from_config(cfg)
+    object.__setattr__(g.ts, "channel_base", 16)
+    d = Discriminator(patch_size=101, channel_multiplier=1,
+                      batch_size=batch_size, use_coord_ac=True,
+                      coord_num_dir=3, linear_ch=16)
+    return cfg, g, narrow_d(d)
 
 
 def jax_layout(node, name=""):
@@ -69,6 +97,8 @@ def cpu_budget():
     optimisations off: each JAX reference compiles once and runs once, so
     its compile is the cost (the draws and the inversion step compile in
     about a third of the time; values move by float rounding only)."""
+    import jax
+
     n = torch.get_num_threads()
     opt = jax.config.read("jax_disable_most_optimizations")
     torch.set_num_threads(2)

@@ -139,14 +139,6 @@ def test_cli_cuda_without_a_card_raises(tmp_path):
         main(args + ["--random-init"])            # --device cuda by default
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--engine", "sharded"], "A12"), (["--engine", "halo"], "A12")])
-def test_cli_unported_modes_raise(tmp_path, monkeypatch, flag, item):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        main(_yamls(tmp_path, "close_loop") + ["--device", "cpu"] + flag)
-
-
 def test_cli_speed_benchmark_writes_timings_and_no_images(narrow, tmp_path,
                                                           monkeypatch):
     monkeypatch.chdir(tmp_path)

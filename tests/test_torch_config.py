@@ -170,7 +170,7 @@ def test_import_func_resolves_inside_the_port(path):
 
 
 @pytest.mark.parametrize("path", [
-    "os.path.join", "spgan_tpu.infer.halo.generate_width_sharded",
+    "os.path.join", "spgan_tpu.ops.pallas.sphere_kernel.fused_sphere_conv",
     "spgan_tpu_torch.models.generator.NoSuchClass", "Generator"])
 def test_import_func_raises_outside_the_port(path):
     with pytest.raises(ValueError):

@@ -169,17 +169,11 @@ def test_failure_appends_to_error_log(run_dir, monkeypatch):
         assert log.read_text().count("RuntimeError: step exploded") == n
 
 
-@pytest.mark.parametrize("flag", [["--baseline-ckpt", "b.ckpt"],
-                                  ["--num-processes", "2"]])
+@pytest.mark.parametrize("flag", [["--baseline-ckpt", "b.ckpt"]])
 def test_unported_flags_raise(flag):
-    """Multi-process training (A12) raises; --baseline-ckpt is ported, and
-    a checkpoint that is not there raises naming it, before anything
-    else runs."""
-    if flag[0] == "--baseline-ckpt":
-        with pytest.raises(FileNotFoundError, match="b.ckpt"):
-            main(["tiny.yaml", *flag, "--device", "cpu"])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """--baseline-ckpt is ported, and a checkpoint that is not there
+    raises naming it, before anything else runs."""
+    with pytest.raises(FileNotFoundError, match="b.ckpt"):
         main(["tiny.yaml", *flag, "--device", "cpu"])
 
 
