@@ -137,10 +137,13 @@ Phases (any failure exits non-zero; nothing is caught):
              the folded engine, B1 24 and 12 a rank a generate; (c) the
              halo path at spgan.yaml's widths (window 35, halo 29 latent
              columns, float32, batch 4) at 384x1920 over 4 ranks and
-             384x1056 over 2 (11 columns: pad + drop) against one rank
-             bit for bit, one rank against the folded engine on the
-             halo's fields, B1 at the halo's shapes against its plain
-             version; (d) a plain and an R1+PPL data-parallel step on 2
+             384x1056 over 2 (11 columns: pad + drop), and 384x1056 with
+             SS noise (ss_disable_noise false, SS noise weights 0.5) over
+             2, against one rank bit for bit, one rank against the folded
+             engine on the halo's fields (the SS noise case also against
+             its render without the noise, which it must move), B1 at the
+             halo's shapes against its plain version; (d) a plain and an
+             R1+PPL data-parallel step on 2
              gloo ranks against (a)'s one-process steps (rtol 5e-4, atol
              1e-5), equal parameter digests, B3 8 and 12 a rank; then
              train() on 2 ranks for 4 iterations of spgan_run5k.yaml
@@ -149,6 +152,14 @@ Phases (any failure exits non-zero; nothing is caught):
              renders 16 PNGs from it (48 B1 launches a batch).  Every
              multi-rank time is ranks sharing one card over gloo, not a
              scale-out rate.
+  14. baseline  the styleGAN2 baseline family at the reference's full
+             width (spgan.yaml with styleGAN2_baseline: out_res 128 from a
+             4x4 local latent, 10 convs of 512 channels, zero padding,
+             [1,3,3,1] blur; no SS, so no B1/B2/B3): cuda against cpu at
+             batch 2 (float32, TF32 off), ms per forward at batch 16 in
+             float32 and bf16 (median, min, max of 10 after a warm-up),
+             peak memory, no kernel launch, the parameters' export ->
+             import round trip bit for bit, the engine's refusal
 Then prints the whole script's time, the kernels JSON line, the card's
 name and power limit, and as the last line {"ok": true, "device":
 {...}}.  Imports no JAX.
@@ -2718,7 +2729,9 @@ SCALE_WORLD_TIMEOUT_S = 300  # each world's children, from their start
 SCALE_GROUP_TIMEOUT_S = 240  # each process group's collectives
 SCALE_REPS = 3               # timed generates per world (after a warm-up)
 HALO_BATCH = 4
-HALO_WIDTHS = {1920: 4, 1056: 2}  # width: ranks (20 and 11 lattice columns)
+# case: ranks (20 and 11 lattice columns; "<width>:ss_noise" with
+# ss_disable_noise false and every SS noise weight 0.5)
+HALO_CASES = {"1920": 4, "1056": 2, "1056:ss_noise": 2}
 HALO_SEED = 7
 SHARING = "ranks sharing one card over gloo, not a scale-out rate"
 # the data-parallel steps' metrics against one process's: JAX's bound
@@ -3092,12 +3105,13 @@ def _b1_halo_check(fn, params, g):
     return worst
 
 
-def _scale_child_halo(n, rank, coord, tmp, *widths):
+def _scale_child_halo(n, rank, coord, tmp, *cases):
     """(c): the halo path at full width (spgan.yaml, float32, window 35,
-    halo 29 latent columns, batch HALO_BATCH) from HALO_SEED at each
-    width; rank 0 saves its meta image; a world of one also holds B1 at
-    the path's shapes and renders the folded engine on the halo's own
-    fields."""
+    halo 29 latent columns, batch HALO_BATCH) from HALO_SEED in each case
+    ("<width>", or "<width>:ss_noise": ss_disable_noise false with every
+    SS noise weight 0.5); rank 0 saves its meta image; a world of one
+    also holds B1 at the path's shapes and renders the folded engine on
+    the halo's own fields."""
     from spgan_tpu_torch.config import load_config
     from spgan_tpu_torch.infer.engine import PanoramaEngine
     from spgan_tpu_torch.infer.halo import make_width_sharded_generate
@@ -3112,26 +3126,33 @@ def _scale_child_halo(n, rank, coord, tmp, *widths):
     # bits twice (atomics), so these worlds take its deterministic ones
     torch.backends.cudnn.deterministic = True
     try:
-        cfg = load_config(_repo_path("configs", "model", "spgan.yaml"))
-        tp = cfg.train_params
-        g = Generator.from_config(cfg)
-        params = g.init(torch.Generator().manual_seed(0), device=mesh.device)
         res = {}
-        for w in map(int, widths):
+        for case in cases:
+            width, _, mode = case.partition(":")
+            w, ss_noise = int(width), mode == "ss_noise"
+            cfg = load_config(_repo_path("configs", "model", "spgan.yaml"))
+            tp = cfg.train_params
+            tp.ss_disable_noise = not ss_noise
+            g = Generator.from_config(cfg)
+            params = g.init(torch.Generator().manual_seed(0),
+                            device=mesh.device)
+            if ss_noise:
+                for b in params["ss"]["blocks"]:
+                    b["planar"]["noise"]["weight"].fill_(0.5)
             plan = build_close_loop_plan(g, 384, w)
             fn = make_width_sharded_generate(
                 g, plan, mesh, HALO_BATCH, tp.partial,
                 compute_dtype=tp.compute_dtype, device=mesh.device)
-            r = res[str(w)] = {"cols": plan.num_steps_w_min,
-                               "cols_per_dev": fn.cols_per_dev,
-                               "pad": fn.pad,
-                               "ss_layers": g.ss.n_layers,
-                               "window": plan.window, "halo": fn.halo_z}
+            r = res[case] = {"cols": plan.num_steps_w_min,
+                             "cols_per_dev": fn.cols_per_dev, "pad": fn.pad,
+                             "ss_layers": g.ss.n_layers,
+                             "window": plan.window, "halo": fn.halo_z}
             if n == 1:
                 r["b1_err"] = _b1_halo_check(fn, params, g)
             meta, r["ms"], r["launches"] = _drive(
                 lambda: fn(params, HALO_SEED), 2)
-            print(f"[scale] {label} rank {mesh.rank}: halo 384x{w} batch "
+            print(f"[scale] {label} rank {mesh.rank}: halo 384x{w}"
+                  f"{' with SS noise' if ss_noise else ''} batch "
                   f"{HALO_BATCH} float32: {fn.cols_per_dev} columns a rank "
                   f"(pad {fn.pad}), {', '.join(f'{t:.1f}' for t in r['ms'])}"
                   f" ms, B1 {r['launches']['fused_sphere_conv_grouped']:.0f} "
@@ -3140,7 +3161,8 @@ def _scale_child_halo(n, rank, coord, tmp, *widths):
                 continue
             r["finite"] = bool(meta.isfinite().all())
             r["shape"] = list(meta.shape)
-            r["npy"] = os.path.join(tmp, f"halo_{w}_{n}.npy")
+            r["npy"] = os.path.join(
+                tmp, f"halo_{case.replace(':', '_')}_{n}.npy")
             np.save(r["npy"], meta.cpu().numpy())
             if n == 1:
                 eng = PanoramaEngine(g=g, plan=plan, batch=HALO_BATCH,
@@ -3152,7 +3174,8 @@ def _scale_child_halo(n, rank, coord, tmp, *widths):
                 r["folded_err"] = float((meta - folded).abs().max())
                 r["folded_max"] = float(folded.abs().max())
                 print(f"[scale] {label}: halo vs the folded engine on the "
-                      f"halo's fields at 384x{w}: max |diff| "
+                      f"halo's fields at 384x{w}"
+                      f"{' with SS noise' if ss_noise else ''}: max |diff| "
                       f"{r['folded_err']:.3e} of max |folded| "
                       f"{r['folded_max']:.3e}; B1 at the halo's shapes vs "
                       f"plain {r['b1_err']:.3e}")
@@ -3386,49 +3409,69 @@ def phase_scale(card_str):
                   f"{res[0]['exact']})")
         # (c) -------------------------------------------------------
         halo_launches = {}
-        (one,) = _run_world("halo", 1, tmp, args=list(HALO_WIDTHS))
-        for w, n in HALO_WIDTHS.items():
-            res = _run_world("halo", n, tmp, args=[w])
-            o, r0 = one[str(w)], res[0][str(w)]
-            for what, r in (("1 rank", o), (f"{n} ranks", r0)):
-                want = r["cols_per_dev"] * r["ss_layers"]
-                if (r["launches"]["fused_sphere_conv_grouped"] != want
-                        or not r["finite"]
-                        or r["shape"] != [HALO_BATCH, 581, w, 3]):
-                    raise AssertionError(f"halo 384x{w} {what}: {r}")
-            for rr in res[1:]:
-                if "npy" in rr[str(w)]:
-                    raise AssertionError("a rank other than 0 assembled")
-            cpd = -(-o["cols"] // n)
-            if (r0["cols_per_dev"], r0["pad"]) != (cpd, cpd * n - o["cols"]):
-                raise AssertionError(f"halo 384x{w} x{n}: {r0}")
-            got, ref = np.load(r0["npy"]), np.load(o["npy"])
-            if not np.array_equal(got, ref):
-                d = np.abs(got - ref)
-                raise AssertionError(
-                    f"halo 384x{w}: {n} ranks differ from one rank in "
-                    f"{int((d > 0).sum())} of {d.size} values, max |diff| "
-                    f"{float(d.max()):.3e} of max |ref| "
-                    f"{float(np.abs(ref).max()):.3e}")
-            # float32 (TF32 off): the folded engine groups other positions
-            # per call, so the sums run in another order: within 1e-3 of
-            # the largest value
-            if o["folded_err"] > 1e-3 * o["folded_max"]:
-                raise AssertionError(f"halo 384x{w} vs folded: "
-                                     f"{o['folded_err']}")
-            halo_launches[f"384x{w}_{n}"] = \
-                r0["launches"]["fused_sphere_conv_grouped"]
-            halo_launches[f"384x{w}_1"] = \
-                o["launches"]["fused_sphere_conv_grouped"]
-            print(f"[scale] (c) {card_str}: halo 384x{w} ({o['cols']} "
-                  f"columns, window {o['window']}, halo {o['halo']}) on {n} "
-                  f"gloo ranks, pad {r0['pad']}: bit-identical to one rank; "
-                  f"B1 {halo_launches[f'384x{w}_{n}']:.0f} a rank a generate"
-                  f" ({halo_launches[f'384x{w}_1']:.0f} on one); "
-                  f"{max(np.median(r[str(w)]['ms']) for r in res):.1f} ms a "
-                  f"generate ({SHARING}), one rank "
-                  f"{np.median(o['ms']):.1f} ms")
-        b1_halo_err = max(one[str(w)]["b1_err"] for w in HALO_WIDTHS)
+        (one,) = _run_world("halo", 1, tmp, args=list(HALO_CASES))
+        for n in sorted(set(HALO_CASES.values()), reverse=True):
+            cases = [c for c, m in HALO_CASES.items() if m == n]
+            res = _run_world("halo", n, tmp, args=cases)
+            for case in cases:
+                w = int(case.split(":")[0])
+                o, r0 = one[case], res[0][case]
+                for what, r in (("1 rank", o), (f"{n} ranks", r0)):
+                    want = r["cols_per_dev"] * r["ss_layers"]
+                    if (r["launches"]["fused_sphere_conv_grouped"] != want
+                            or not r["finite"]
+                            or r["shape"] != [HALO_BATCH, 581, w, 3]):
+                        raise AssertionError(f"halo {case} {what}: {r}")
+                for rr in res[1:]:
+                    if "npy" in rr[case]:
+                        raise AssertionError("a rank other than 0 "
+                                             "assembled")
+                cpd = -(-o["cols"] // n)
+                if (r0["cols_per_dev"], r0["pad"]) != (cpd,
+                                                       cpd * n - o["cols"]):
+                    raise AssertionError(f"halo {case} x{n}: {r0}")
+                got, ref = np.load(r0["npy"]), np.load(o["npy"])
+                if not np.array_equal(got, ref):
+                    d = np.abs(got - ref)
+                    raise AssertionError(
+                        f"halo {case}: {n} ranks differ from one rank in "
+                        f"{int((d > 0).sum())} of {d.size} values, max "
+                        f"|diff| {float(d.max()):.3e} of max |ref| "
+                        f"{float(np.abs(ref).max()):.3e}")
+                # float32 (TF32 off): the folded engine groups other
+                # positions per call, so the sums run in another order:
+                # within 1e-3 of the largest value
+                if o["folded_err"] > 1e-3 * o["folded_max"]:
+                    raise AssertionError(f"halo {case} vs folded: "
+                                         f"{o['folded_err']}")
+                moved = ""
+                if case.endswith(":ss_noise"):
+                    # the same weights but the SS noise weights and the
+                    # same draws before the SS noise maps: the maps must
+                    # move the image
+                    plain = one[case.split(":")[0]]["npy"]
+                    shift = float(np.abs(ref - np.load(plain)).max())
+                    if not shift > 1e-3:
+                        raise AssertionError(f"halo {case}: the SS noise "
+                                             f"moves the image by {shift}")
+                    moved = (f"; the SS noise moves it by {shift:.3e} (max "
+                             f"|diff| from 384x{w} without)")
+                halo_launches[f"384x{case}_{n}"] = \
+                    r0["launches"]["fused_sphere_conv_grouped"]
+                halo_launches[f"384x{case}_1"] = \
+                    o["launches"]["fused_sphere_conv_grouped"]
+                print(f"[scale] (c) {card_str}: halo 384x{case} "
+                      f"({o['cols']} columns, window {o['window']}, halo "
+                      f"{o['halo']}) on {n} gloo ranks, pad {r0['pad']}: "
+                      f"bit-identical to one rank; B1 "
+                      f"{halo_launches[f'384x{case}_{n}']:.0f} a rank a "
+                      f"generate ({halo_launches[f'384x{case}_1']:.0f} on "
+                      f"one); {max(np.median(r[case]['ms']) for r in res):.1f}"
+                      f" ms a generate ({SHARING}), one rank "
+                      f"{np.median(o['ms']):.1f} ms; vs folded max |diff| "
+                      f"{o['folded_err']:.3e} of {o['folded_max']:.3e}"
+                      f"{moved}")
+        b1_halo_err = max(one[c]["b1_err"] for c in HALO_CASES)
         # (d) -------------------------------------------------------
         res = _run_world("dp", 2, tmp)
         dp_launches = {}
@@ -3502,6 +3545,130 @@ def phase_scale(card_str):
             "dp_b8_max_abs_err": b3_err}
 
 
+# ---------------------------------------------------------------- phase 14
+BASELINE_BATCH = 16
+BASELINE_REPS = 10  # timed forwards after one warm-up, each synchronised
+
+
+def _baseline_inputs(g, batch, dev, seed):
+    """(global latents, 4x4 local latents, one noise map per TS conv),
+    float32 from a CPU generator, on dev."""
+    gen = torch.Generator().manual_seed(seed)
+    gl = torch.randn((batch, 2, g.ts.global_dim), generator=gen)
+    gl[:, 1] = gl[:, 0]
+    ll = torch.randn((batch, 4, 4, g.ts.local_dim), generator=gen)
+    noises = [torch.randn((batch, s, s, 1), generator=gen)
+              for s in g.ts.noise_sizes()]
+    return gl.to(dev), ll.to(dev), [n.to(dev) for n in noises]
+
+
+def phase_baseline(card_str):
+    """Phase 14: the styleGAN2 baseline family at the reference's full
+    width (spgan.yaml with styleGAN2_baseline: out_res 128 from a 4x4
+    local latent, 10 convs of 512 channels, zero padding, a [1,3,3,1]
+    blur; random weights, the TS noise weights 0.1): cuda against cpu at
+    batch 2 (float32, TF32 off), ms per forward at batch 16 in float32
+    and bf16, peak memory, no B1/B2/B3 launch, the export -> import round
+    trip of its parameters bit for bit, and the engine's refusal."""
+    from spgan_tpu_torch.compat.torch_import import (
+        export_torch_style_state_dict, import_torch_generator)
+    from spgan_tpu_torch.config import load_config
+    from spgan_tpu_torch.infer.engine import PanoramaEngine
+    from spgan_tpu_torch.models.generator import Generator
+    from spgan_tpu_torch.tree import flatten
+
+    t_phase = time.perf_counter()
+    # float32 means float32 (main() sets this too; the phase runs alone)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(_repo_path("configs", "model", "spgan.yaml"))
+    tp = cfg.train_params
+    tp.styleGAN2_baseline, tp.use_ss = True, False
+    tp.ts_input_size, tp.patch_size, tp.ts_no_zero_pad = 4, 128, False
+    g = Generator.from_config(cfg)
+    if (g.ss is not None or g.ts.out_res != 128 or g.ts.num_layers != 10
+            or {c["out_ch"] for c in g.ts.plan()[0]} != {512}
+            or g.ts.blur_kernel != (1.0, 3.0, 3.0, 1.0)):
+        raise AssertionError(f"baseline generator: {g}")
+    params = {}
+    for dev in ("cpu", "cuda"):
+        params[dev] = g.init(torch.Generator().manual_seed(0), device=dev)
+        for c in params[dev]["ts"]["convs"]:
+            c["noise"]["weight"].fill_(0.1)
+
+    @torch.inference_mode()
+    def forward(dev, inputs, dtype=torch.float32):
+        gl, ll, noises = inputs
+        return g.apply(params[dev], global_latent=gl,
+                       local_latent=ll.to(dtype), coords=None, cp=None,
+                       noises=[n.to(dtype) for n in noises])["gen"]
+
+    small = {dev: forward(dev, _baseline_inputs(g, 2, dev, 0)).cpu()
+             for dev in ("cpu", "cuda")}
+    # float32, TF32 off: cuDNN and the CPU's convolutions sum in other
+    # orders through 10 demodulated layers; 1e-4 of the largest value
+    bound = 1e-4 * float(small["cpu"].abs().max())
+    err = check_close("baseline forward cuda vs cpu (batch 2, float32)",
+                      small["cuda"], small["cpu"], bound, 0.0)
+    print(f"[baseline] {card_str}: out_res 128 forward, batch 2, float32: "
+          f"cuda vs cpu max abs err {err:.3e} (bound {bound:.3e}, 1e-4 of "
+          f"max |cpu| {float(small['cpu'].abs().max()):.3e})")
+    inputs = _baseline_inputs(g, BASELINE_BATCH, "cuda", 1)
+    result = {"cuda_vs_cpu_max_abs_err": err, "bound": bound}
+    _zero_counts()
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = forward("cuda", inputs, dtype)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(BASELINE_REPS):
+            t0 = time.perf_counter()
+            out = forward("cuda", inputs, dtype)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if (tuple(out.shape) != (BASELINE_BATCH, 128, 128, 3)
+                or out.dtype != dtype or not bool(out.isfinite().all())):
+            raise AssertionError(f"baseline {name}: {tuple(out.shape)} "
+                                 f"{out.dtype}, finite "
+                                 f"{bool(out.isfinite().all())}")
+        result[name] = {"median_ms": float(np.median(ms)),
+                        "min_ms": min(ms), "max_ms": max(ms),
+                        "peak_gib": peak}
+        print(f"[baseline] {card_str}: forward batch {BASELINE_BATCH} "
+              f"{name}: median {np.median(ms):.2f} ms, min {min(ms):.2f}, "
+              f"max {max(ms):.2f} ({BASELINE_REPS} synchronised calls after "
+              f"a warm-up); peak memory {peak:.2f} GiB")
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"baseline forward launched {launches}")
+    print(f"[baseline] B1/B2/B3 launches over the {2 * (BASELINE_REPS + 1)} "
+          f"forwards: {launches}")
+    sd = export_torch_style_state_dict(params["cuda"], g)
+    back = import_torch_generator(
+        {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()},
+        g, device="cuda")
+    want, got = dict(flatten(params["cuda"])), dict(flatten(back))
+    if sorted(got) != sorted(want) or not all(
+            torch.equal(got[k], v) for k, v in want.items()):
+        raise AssertionError("baseline export -> import: parameters differ")
+    print(f"[baseline] export -> import of the {len(want)} parameter "
+          f"tensors ({sum(v.numel() for v in want.values())} values, "
+          f"{len(sd)} state-dict keys, no SS): bit for bit")
+    try:
+        PanoramaEngine(g=g, plan=None, batch=BASELINE_BATCH)
+    except ValueError as e:
+        if "requires a generator with use_ss=true" not in str(e):
+            raise
+        print(f"[baseline] the engine refuses it: {e}")
+    else:
+        raise AssertionError("the engine took a baseline generator")
+    result["launches"] = launches
+    print(f"[baseline] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3530,6 +3697,7 @@ def main():
     fid = phase_fid(card_str)
     served = phase_serve(card_str)
     scale = phase_scale(card_str)
+    baseline = phase_baseline(card_str)
 
     replaces = {
         "fused_sphere_conv_grouped": "spgan_tpu/ops/pallas/sphere_kernel.py:120",
@@ -3580,6 +3748,8 @@ def main():
             for k in ("sharded_launches_per_rank", "halo_launches_per_rank",
                       "halo_f32_max_abs_err"):
                 line[-1][k] = scale[k]
+        # phase 14: the styleGAN2 baseline forward has no SS
+        line[-1]["baseline_forward_launches"] = baseline["launches"][name]
     dev_ms = sum(r["device_ms"] for r in sample.values())
     bound_ms = sum(r["bound_ms"] for r in sample.values())
     line.append({
@@ -3605,6 +3775,8 @@ def main():
         # each), and exactness at a rank's batch of 8
         "dp_launches_per_rank_step": scale["dp_launches_per_rank_step"],
         "dp_b8_max_abs_err": scale["dp_b8_max_abs_err"],
+        "baseline_forward_launches": baseline["launches"][
+            "sphere_sample_taps"],
         "max_abs_err": max(r["err"] for r in sample.values()),
         # one launch at each of the four SS shapes, B=16, C=259, float32
         # back to back from the host (host time included)

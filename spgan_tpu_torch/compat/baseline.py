@@ -99,7 +99,7 @@ def import_torch_baseline_generator(state_dict: Dict, g,
             put(["ts", "sp_convs", j, "bias"], _t(sd[f"{p}.bias"]))
 
     # ---- SS (planar slots 1,3,5,7 after the remap; sphere slots if any) -
-    for i in range(g.ss.n_layers):
+    for i in range(0 if g.ss is None else g.ss.n_layers):
         sp = f"structure_synthesizer.implicit_model.conv_stack.{2 * i}"
         pp = f"structure_synthesizer.implicit_model.conv_stack.{2 * i + 1}"
         try_modconv(["ss", "blocks", i, "sphere", "conv"], f"{sp}.conv.conv")

@@ -1,5 +1,6 @@
 """Generator weights to and from files (counterpart of
-spgan_tpu/compat/load.py: ``save_params_npz``, ``load_generator_params``).
+spgan_tpu/compat/load.py: ``save_params_npz``, ``load_params_npz``,
+``load_generator_params``).
 
 ``load_generator_params`` reads
   * a directory of the port's training checkpoints (train/checkpoint.py):
@@ -36,6 +37,16 @@ def save_params_npz(path: str, params: Any) -> None:
     does: float32 arrays in the JAX layout under flat ``a/b/0/c`` keys,
     compressed."""
     np.savez_compressed(path, **dict(flatten(params_to_jax(params))))
+
+
+def load_params_npz(path: str, template: Any, device=None) -> dict:
+    """The parameters of `template`'s tree (the port's: generator or
+    discriminator) from an ``.npz`` of flat ``a/b/0/c`` keys in the JAX
+    layout (either package's save_params_npz), on `device` (default
+    cuda); keys the template lacks are not read."""
+    with np.load(path) as data:
+        return params_from_jax({k: data[k] for k, _ in flatten(template)},
+                               device=device)
 
 
 def _ema_from_checkpoint(tensors: Dict[str, torch.Tensor]) -> dict:

@@ -1,6 +1,7 @@
-"""Reference PyTorch generator checkpoints -> the port's parameter tree
-(counterpart of spgan_tpu/compat/torch_import.py: ``import_torch_generator``
-only).
+"""Reference PyTorch checkpoints <-> the port's parameter trees
+(counterpart of spgan_tpu/compat/torch_import.py): the generator's
+``g_ema`` and the StyleGan2Discriminator's state dicts in, the generator's
+out (``export_torch_style_state_dict``).
 
 The reference ``g_ema`` state dict (models/spgan/spgan.py module tree,
 with or without DataParallel's ``module.`` prefix) is first mapped onto
@@ -21,6 +22,8 @@ direction:
       conv.noise.weight (ss_disable_noise false)
   structure_synthesizer.implicit_model.global_mapping.{1..8}
       (ss_mapping)                                   -> ss.mapping[i]
+
+A styleGAN2 baseline generator (``g.ss`` None) has no SS keys.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from spgan_tpu_torch.compat.from_jax import params_from_jax
+from spgan_tpu_torch.compat.from_jax import params_from_jax, params_to_jax
 from spgan_tpu_torch.models.generator import SS_MAPPING_LAYERS
 
 
@@ -87,6 +90,8 @@ def torch_generator_to_jax_layout(state_dict: Dict, g) -> dict:
                       "bias": _t(sd[f"{ts}.sp_convs.{j}.bias"])}
                      for j in range(len(i2j))],
     }}
+    if g.ss is None:  # the styleGAN2 baseline
+        return params
     stack = "structure_synthesizer.implicit_model.conv_stack"
     blocks = []
     for i in range(g.ss.n_layers):
@@ -117,3 +122,97 @@ def import_torch_generator(state_dict: Dict, g, device=None) -> dict:
     Generator (only its specs are read)."""
     return params_from_jax(torch_generator_to_jax_layout(state_dict, g),
                            device=device)
+
+
+def import_torch_discriminator(state_dict: Dict, d, device=None) -> dict:
+    """The port's discriminator parameters (float32, on `device`, default
+    cuda) from the reference StyleGan2Discriminator state dict; `d` is
+    the port's Discriminator (only its plan is read).
+
+      convs.0.{0.weight, 1.bias}        stem EqualConv2d + FusedLeakyReLU
+      convs.{i}.conv{1,2}.*, .skip.*    ResBlocks (conv2 and skip hold the
+                                        blur at index 0, the conv at 1)
+      final_conv.{0.weight, 1.bias}
+      final_linear.{0,1}.{weight,bias}
+      coord_linear.{0,1}.{weight,bias}  (the coord-AC head)"""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in state_dict.items()}
+
+    def conv_layer(prefix, downsample=False, activate=True):
+        # Sequential indices: [Blur,] EqualConv2d [, FusedLeakyReLU]
+        ci = 1 if downsample else 0
+        out = {"conv": {"weight": _t(sd[f"{prefix}.{ci}.weight"])
+                        .transpose(2, 3, 1, 0)}}
+        if f"{prefix}.{ci}.bias" in sd:
+            out["conv"]["bias"] = _t(sd[f"{prefix}.{ci}.bias"])
+        if activate and f"{prefix}.{ci + 1}.bias" in sd:
+            out["act_bias"] = _t(sd[f"{prefix}.{ci + 1}.bias"])
+        return out
+
+    blocks = d.plan()[1]
+    params = {
+        "stem": conv_layer("convs.0"),
+        "blocks": [{"conv1": conv_layer(f"convs.{i + 1}.conv1"),
+                    "conv2": conv_layer(f"convs.{i + 1}.conv2",
+                                        downsample=True),
+                    "skip": conv_layer(f"convs.{i + 1}.skip",
+                                       downsample=True, activate=False)}
+                   for i in range(len(blocks))],
+        "final_conv": conv_layer("final_conv"),
+        "final_linear": [_linear(sd, f"final_linear.{i}") for i in range(2)],
+    }
+    if d.use_coord_ac and "coord_linear.0.weight" in sd:
+        params["coord_linear"] = [_linear(sd, f"coord_linear.{i}")
+                                  for i in range(2)]
+    return params_from_jax(params, device=device)
+
+
+def export_torch_style_state_dict(params: dict, g=None
+                                  ) -> Dict[str, np.ndarray]:
+    """The port's generator parameters as the reference g_ema state dict
+    (numpy arrays): the inverse of import_torch_generator.  `g` is not
+    read (the JAX package's signature)."""
+    p = params_to_jax(params)
+    sd: Dict[str, np.ndarray] = {}
+
+    def put_linear(prefix, lin):
+        sd[prefix + ".weight"] = lin["weight"].T
+        if "bias" in lin:
+            sd[prefix + ".bias"] = lin["bias"]
+
+    def put_modconv(prefix, conv):
+        sd[prefix + ".weight"] = conv["weight"].transpose(3, 2, 0, 1)[None]
+        put_linear(prefix + ".modulation", conv["modulation"])
+
+    ts = "texture_synthesizer"
+    for i, lin in enumerate(p["ts"]["mapping"]):
+        put_linear(f"{ts}.mapping.{i + 1}", lin)
+    for i, c in enumerate(p["ts"]["convs"]):
+        put_modconv(f"{ts}.convs.{i}.conv", c["conv"])
+        sd[f"{ts}.convs.{i}.activate.bias"] = c["act_bias"]
+        if "noise" in c:
+            sd[f"{ts}.convs.{i}.noise.weight"] = \
+                c["noise"]["weight"].reshape(1)
+    for j, r in enumerate(p["ts"]["to_rgbs"]):
+        put_modconv(f"{ts}.to_rgbs.{j}.conv", r["conv"])
+        sd[f"{ts}.to_rgbs.{j}.bias"] = r["bias"].reshape(1, 3, 1, 1)
+    for j, c in enumerate(p["ts"]["sp_convs"]):
+        sd[f"{ts}.sp_convs.{j}.weight"] = c["weight"].transpose(3, 2, 0, 1)
+        sd[f"{ts}.sp_convs.{j}.bias"] = c["bias"]
+    if "ss" not in p:  # the styleGAN2 baseline
+        return sd
+    stack = "structure_synthesizer.implicit_model.conv_stack"
+    for i, blk in enumerate(p["ss"]["blocks"]):
+        sp, pp = f"{stack}.{2 * i}", f"{stack}.{2 * i + 1}"
+        put_modconv(sp + ".conv.conv", blk["sphere"]["conv"])
+        sd[sp + ".sc.weight"] = blk["sc"]["weight"].transpose(3, 2, 0, 1)
+        sd[sp + ".sc.bias"] = blk["sc"]["bias"]
+        put_modconv(pp + ".conv.conv", blk["planar"]["conv"])
+        sd[pp + ".conv.activate.bias"] = blk["planar"]["act_bias"]
+        if "noise" in blk["planar"]:
+            sd[pp + ".conv.noise.weight"] = \
+                blk["planar"]["noise"]["weight"].reshape(1)
+    for i, lin in enumerate(p["ss"].get("mapping", [])):
+        put_linear("structure_synthesizer.implicit_model."
+                   f"global_mapping.{i + 1}", lin)
+    return sd

@@ -97,6 +97,11 @@ class TrainParams:
     def ss_unfold_size(self) -> int:
         return self.ss_n_layers * self.ss_unfold_radius
 
+    @property
+    def ss_input_size(self) -> int:
+        """The SS input: the TS input and the SS padding ring."""
+        return self.ts_input_size + 2 * self.ss_unfold_size
+
 
 @dataclass
 class DataParams:
@@ -167,6 +172,10 @@ class Config:
     task: TaskConfig = field(default_factory=TaskConfig)
     exp_name: str = "spgan"
     log_dir: str = "logs"
+
+    def replace(self, **kw) -> "Config":
+        """A shallow copy with the fields `kw` names replaced."""
+        return dataclasses.replace(self, **kw)
 
 
 # train_params keys of the JAX package with no field here: the port runs

@@ -30,6 +30,10 @@ class CoordsPartial:
     y_total: int = 140
     grid_partial: float = 0.8
 
+    @property
+    def batch(self) -> int:
+        return self.p_x_st.shape[0]
+
     @classmethod
     def from_scalars(cls, cps: np.ndarray, x_total: int, y_total: int,
                      grid_partial: float) -> "CoordsPartial":

@@ -180,6 +180,60 @@ def sphere_patch_grid_batch(cp, h: int, w: int, k: int = 3) -> torch.Tensor:
         y_total=cp.y_total)
 
 
+def _grid_from_ranges(lat_range: np.ndarray, lon_range: np.ndarray, k: int,
+                      x_total: int, y_total: int) -> np.ndarray:
+    """Gnomonic taps around explicit lat/lon centre ranges, min-max
+    normalised: (h*k, w*k, 2) float32 (numpy, float64 inside)."""
+    ker_x, ker_y, rho, nu = _kernel_offsets(k, x_total, y_total)
+    cos_nu, sin_nu = np.cos(nu), np.sin(nu)
+    sin_lat = np.sin(lat_range)[:, None, None]
+    cos_lat = np.cos(lat_range)[:, None, None]
+    lat = np.arcsin(np.clip(
+        cos_nu * sin_lat + ker_y * sin_nu * cos_lat / rho, -1.0, 1.0))
+    pattern = lat - lat[:, k // 2, k // 2][:, None, None]
+
+    def mm(v):
+        return (v - v.min()) / (v.max() - v.min()) * 2.0 - 1.0
+
+    lat_norm = mm(lat_range)[:, None, None] + pattern
+    lon_off = np.arctan(ker_x * sin_nu /
+                        (rho * cos_lat * cos_nu - ker_y * sin_lat * sin_nu))
+    lon_norm = lon_off[:, None] + mm(lon_range)[None, :, None, None]
+    h, w = len(lat_range), len(lon_range)
+    lat_full = np.broadcast_to(lat_norm[:, None], (h, w, k, k))
+    gy = lat_full.transpose(0, 2, 1, 3).reshape(h * k, w * k)
+    gx = lon_norm.transpose(0, 2, 1, 3).reshape(h * k, w * k)
+    return np.stack([gx, gy], axis=-1).astype(np.float32)
+
+
+def sphere_patch_grid_presampled(p_x_st: float, p_x_ed: float,
+                                 p_y_st: float, p_y_ed: float,
+                                 circular: bool, partial: float,
+                                 full_shape, k: int,
+                                 x_total: int, y_total: int,
+                                 pre_sample_mode: bool = False) -> np.ndarray:
+    """The reference's presampled test modes: the centres come from
+    linspaces over the whole latent field, `full_shape` = (field_h,
+    field_w), instead of one linspace per patch.  The full-shape mode
+    takes exclusive-1 end indices, pre_sample_mode +1 ends.  (h*k, w*k, 2)
+    float32 numpy.  No shipped flow renders with it."""
+    fh, fw = full_shape
+    end = 1 if pre_sample_mode else -1
+    x_st = round(p_x_st * x_total)
+    x_ed = round(p_x_ed * x_total) + end
+    y_st = round(p_y_st * y_total)
+    y_ed = round(p_y_ed * y_total) + end
+    all_x = np.linspace(-np.pi * partial / 2, np.pi * partial / 2, fh)
+    all_y = np.linspace(-np.pi, np.pi, fw)
+    lat_range = all_x[x_st:x_ed]
+    if circular and not (pre_sample_mode and y_ed == fw):
+        y_ed = y_ed % fw
+        lon_range = np.concatenate([all_y[y_st:], all_y[:y_ed] + TWO_PI])
+    else:
+        lon_range = all_y[y_st:y_ed]
+    return _grid_from_ranges(lat_range, lon_range, k, x_total, y_total)
+
+
 def incre_interval_pattern(h: int, w: int, k: int, stride: int = 1,
                            upsample: bool = False) -> np.ndarray:
     """Border-shrinking global pattern of the stride-2 / upsampling

@@ -45,6 +45,19 @@ from spgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def refuse_planar(g: Generator) -> None:
+    """Raise the JAX engine's ValueError for a generator without an SS
+    (the styleGAN2 baseline): the lattice threads the SS coordinates and
+    crops through every patch."""
+    if g.ss is None:
+        raise ValueError(
+            "PanoramaEngine requires a generator with use_ss=true; "
+            "got a planar generator (g.ss is None). Planar stitched "
+            "generation is not a shipped reference path either "
+            "(its InfinityGAN managers assume the SS coord handler, "
+            "test_managers/base_test_manager.py:40).")
+
+
 def render_patches(g: Generator, params, styles, gz, z_src, coords_src,
                    noises_src, z_starts, noise_starts, grids, tables,
                    skip_tables, skip_margins, *, batch: int, win: int,
@@ -84,6 +97,48 @@ def render_patches(g: Generator, params, styles, gz, z_src, coords_src,
     return img.reshape(chunk, B, patch_sz, patch_sz, 3)
 
 
+def scatter_patches(plan: LatticePlan, patches: torch.Tensor,
+                    full_map: np.ndarray,
+                    meta: Optional[torch.Tensor] = None,
+                    positions: Optional[Sequence[int]] = None
+                    ) -> torch.Tensor:
+    """Meta assembly in the reference's row-major overwrite order: lattice
+    position p writes patches[full_map[p]] (a close-loop wrap column its
+    base column's render), and a close-loop patch that runs past the
+    right edge wraps to column 0.  With SS noise, neighbouring patches
+    differ in their overlaps, so the order shows in the image.  `meta`:
+    write into this batch of meta images (in place) instead of zeros;
+    `positions`: write only these lattice positions."""
+    patch_sz = plan.geom.outfeat_sizes[-1]
+    B = patches.shape[1]
+    if meta is None:
+        meta = torch.zeros((B, plan.meta_h, plan.meta_w, 3),
+                           dtype=torch.float32, device=patches.device)
+    if positions is None:
+        positions = range(plan.num_patches)
+    for p in positions:
+        r, c_raw = int(plan.img_starts[p, 0]), int(plan.img_starts[p, 1])
+        patch = patches[int(full_map[p])]
+        c = c_raw % plan.meta_w if plan.close_loop else c_raw
+        rows = slice(r, r + patch_sz)
+        if c + patch_sz <= plan.meta_w:
+            meta[:, rows, c:c + patch_sz] = patch
+        else:
+            split = plan.meta_w - c
+            meta[:, rows, c:] = patch[:, :, :split]
+            meta[:, rows, :patch_sz - split] = patch[:, :, split:]
+    return meta
+
+
+def wrap_full_map(plan: LatticePlan) -> np.ndarray:
+    """Lattice position -> index among the row-major base-column renders
+    (close-loop wrap column j >= num_steps_w_min -> base column j -
+    num_steps_w_min)."""
+    nw, nwm = plan.num_steps_w, plan.num_steps_w_min
+    return np.array([(p // nw) * nwm + (p % nw) % nwm
+                     for p in range(plan.num_patches)], np.int64)
+
+
 @dataclass
 class PanoramaEngine:
     g: Generator
@@ -96,6 +151,7 @@ class PanoramaEngine:
     device: Optional[Union[str, torch.device]] = None  # default: cuda
 
     def __post_init__(self):
+        refuse_planar(self.g)
         self.device = resolve(self.device)
         plan = self.plan
         P = plan.num_patches
@@ -107,8 +163,7 @@ class PanoramaEngine:
             nw, nwm = plan.num_steps_w, plan.num_steps_w_min
             self._render_idx = np.array(
                 [p for p in range(P) if p % nw < nwm], np.int64)
-            self._full_map = np.array(
-                [(p // nw) * nwm + (p % nw) % nwm for p in range(P)], np.int64)
+            self._full_map = wrap_full_map(plan)
         else:
             self._render_idx = np.arange(P, dtype=np.int64)
             self._full_map = np.arange(P, dtype=np.int64)
@@ -228,31 +283,8 @@ class PanoramaEngine:
     def _scatter(self, patches: torch.Tensor,
                  meta: Optional[torch.Tensor] = None,
                  positions: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """Meta assembly in the reference's row-major overwrite order; wrap
-        columns write their base column's render, and a close-loop patch
-        that runs past the right edge wraps to column 0.  `meta`: write
-        into this batch of meta images (in place) instead of zeros;
-        `positions`: write only these lattice positions."""
-        plan = self.plan
-        patch_sz = plan.geom.outfeat_sizes[-1]
-        B = patches.shape[1]
-        if meta is None:
-            meta = torch.zeros((B, plan.meta_h, plan.meta_w, 3),
-                               dtype=torch.float32, device=patches.device)
-        if positions is None:
-            positions = range(plan.num_patches)
-        for p in positions:
-            r, c_raw = int(plan.img_starts[p, 0]), int(plan.img_starts[p, 1])
-            patch = patches[int(self._full_map[p])]
-            c = c_raw % plan.meta_w if plan.close_loop else c_raw
-            rows = slice(r, r + patch_sz)
-            if c + patch_sz <= plan.meta_w:
-                meta[:, rows, c:c + patch_sz] = patch
-            else:
-                split = plan.meta_w - c
-                meta[:, rows, c:] = patch[:, :, :split]
-                meta[:, rows, :patch_sz - split] = patch[:, :, split:]
-        return meta
+        return scatter_patches(self.plan, patches, self._full_map, meta,
+                               positions)
 
     def make_sharded_generate(self, mesh: Mesh):
         """fn(params, gl, z_field, noises) -> the meta image (B, meta_h,

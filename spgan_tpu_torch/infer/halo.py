@@ -23,15 +23,21 @@ own (size - step) halo the same way.
   * Rendering shares the engine's folded body (engine.render_patches):
     the SS sphere convs on the sphere-conv kernel, one chunk of one
     lattice column (num_steps_h rows) x batch panoramas per call.
-  * Rank 0 gathers the patches and assembles the meta image in the
-    reference's row-major overwrite order; it returns the meta image,
-    the other ranks None.
+  * Rank 0 gathers the patches and assembles the meta image as the
+    folded engine does (engine.scatter_patches: the reference's row-major
+    overwrite order, the wrap columns writing their base columns'
+    renders; with SS noise the overlaps of neighbouring patches differ,
+    so the order shows); it returns the meta image, the other ranks
+    None.
   * Build once (make_width_sharded_generate) and call per batch: all the
     static algebra (lattice metadata, tap tables, margins) is done at
     build.  generate_width_sharded builds anew on every call.
-  * SS noise: the JAX package's halo body renders without the SS noise
-    maps that its folded engine uses (fault C8, ROADMAP), so a generator
-    with ss_disable_noise false is refused here.
+  * SS noise (ss_disable_noise false): one (B, s, s, 1) map per SS
+    planar conv and sample, drawn after the global latents from the same
+    tag-0 generator, so every rank holds the same maps; like the folded
+    engine's, they are shared by every lattice position and never
+    width-sharded.  (The JAX package's halo body renders without them,
+    fault C8 of ROADMAP.)
 """
 from __future__ import annotations
 
@@ -44,7 +50,9 @@ from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.geometry.coords import CoordsPartial
 from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
                                                   sphere_patch_grid_batch)
-from spgan_tpu_torch.infer.engine import _DTYPES, render_patches
+from spgan_tpu_torch.infer.engine import (_DTYPES, refuse_planar,
+                                          render_patches, scatter_patches,
+                                          wrap_full_map)
 from spgan_tpu_torch.infer.stitcher import LatticePlan
 from spgan_tpu_torch.models.generator import Generator, skip_margin, tables_to
 from spgan_tpu_torch.parallel.mesh import Mesh, gather_rows, ring_from_right
@@ -80,15 +88,9 @@ class WidthShardedGenerate:
                  batch: int, grid_partial: float,
                  compute_dtype: str = "float32",
                  device: Optional[Union[str, torch.device]] = None):
+        refuse_planar(g)
         if not plan.close_loop:
             raise ValueError("width sharding targets closed-loop panoramas")
-        if not g.ss.disable_noise:
-            raise ValueError(
-                "task.engine 'halo' with ss_disable_noise false: the halo "
-                "path renders without the SS noise maps the folded engine "
-                "uses (the JAX package's halo passes none; ROADMAP C8); "
-                "set ss_disable_noise: true, or use the folded or sharded "
-                "engine")
         self.g, self.plan, self.mesh, self.batch = g, plan, mesh, batch
         self.device = resolve(device)
         self.cdt = _DTYPES[compute_dtype]
@@ -212,21 +214,28 @@ class WidthShardedGenerate:
                                            plan.geom.outfeat_steps)]
         return z, noises
 
-    def _draw_global(self, seed: int) -> torch.Tensor:
-        gen = column_generator(seed, 0, self.device)
-        gl = torch.randn((self.batch, 2, self.g.ts.global_dim),
-                         generator=gen, device=self.device)
+    def _draw_global(self, seed: int):
+        """(gl (B, 2, D), [SS noise map (B, s, s, 1) per SS planar conv,
+        none with ss_disable_noise]) of `seed`: the same on every rank."""
+        kw = dict(generator=column_generator(seed, 0, self.device),
+                  device=self.device)
+        gl = torch.randn((self.batch, 2, self.g.ts.global_dim), **kw)
         gl[:, 1] = gl[:, 0]  # no mixing at test
-        return gl
+        ss_maps = [] if self.g.ss.disable_noise else [
+            torch.randn((self.batch, s, s, 1), **kw)
+            for s in self.g.ss.noise_sizes(self.plan.window)]
+        return gl, ss_maps
 
     def global_fields(self, seed: int):
         """(gl, z_field, noises) of `seed` whole, as the folded engine takes
-        them: what every rank's shards are cut from."""
+        them (the SS noise maps after the TS noise fields): what every
+        rank's shards are cut from."""
         cols = [self._draw_column(seed, j) for j in range(self.nw)]
         z = torch.cat([c[0] for c in cols], dim=2)
         noises = [torch.cat([c[1][li] for c in cols], dim=2)
                   for li in range(len(self.plan.noise_sizes))]
-        return self._draw_global(seed), z, noises
+        gl, ss_maps = self._draw_global(seed)
+        return gl, z, noises + ss_maps
 
     # ------------------------------------------------------------ render
     def __call__(self, params, seed: int) -> Optional[torch.Tensor]:
@@ -235,15 +244,17 @@ class WidthShardedGenerate:
         z_local = torch.cat([c[0] for c in cols], dim=2)
         n_local = [torch.cat([c[1][li] for c in cols], dim=2)
                    for li in range(len(self.plan.noise_sizes))]
-        return self._render(params, self._draw_global(seed), z_local,
+        return self._render(params, *self._draw_global(seed), z_local,
                             n_local)
 
     def from_fields(self, params, gl, z_field, noises
                     ) -> Optional[torch.Tensor]:
         """One batch from global fields (B, z_field_h, z_field_w, D) and
-        [(B, h, w, 1)] (every rank passes the same); this rank takes its
-        shard of the wrap-padded fields."""
+        [(B, h, w, 1)], the SS noise maps after the TS noise fields as
+        global_fields gives them (every rank passes the same); this rank
+        takes its shard of the wrap-padded fields."""
         dev, r, pad = self.device, self.mesh.rank, self.pad
+        n_ts = len(self.plan.noise_sizes)
 
         def shard(f, step):
             f = torch.as_tensor(f, device=dev)
@@ -253,11 +264,13 @@ class WidthShardedGenerate:
 
         steps = self.plan.geom.outfeat_steps
         return self._render(
-            params, torch.as_tensor(gl, device=dev), shard(z_field, self.zx),
-            [shard(n, s) for n, s in zip(noises, steps)])
+            params, torch.as_tensor(gl, device=dev),
+            [torch.as_tensor(m, device=dev) for m in noises[n_ts:]],
+            shard(z_field, self.zx),
+            [shard(n, s) for n, s in zip(noises[:n_ts], steps)])
 
     @torch.inference_mode()
-    def _render(self, params, gl, z_local, n_local):
+    def _render(self, params, gl, ss_maps, z_local, n_local):
         plan, g, mesh, pad = self.plan, self.g, self.mesh, self.pad
         # SS padding ring and the noise levels' halos from the right
         z_ext = torch.cat([z_local, halo_from_right(
@@ -273,31 +286,21 @@ class WidthShardedGenerate:
             self.zs[q], [ns[q] for ns in self.ns], self.grids[q],
             self.tables[q], self.skip_tables[q], self.skip_margins,
             batch=self.batch, win=plan.window,
-            out_sizes=plan.geom.outfeat_sizes, cdt=self.cdt).float()
+            out_sizes=plan.geom.outfeat_sizes, cdt=self.cdt,
+            ss_maps=ss_maps).float()
             for q in range(self.cols_per_dev)])
         patches = gather_rows(patches, mesh)
         if patches is None:
             return None
-        # (rank, local column, row) -> (global column, row); drop the
-        # padded wrap columns (duplicates of base columns 0..pad-1)
+        # (rank, local column, row) -> row-major (row, base column),
+        # dropping the padded wrap columns (duplicates of base columns
+        # 0..pad-1); then the folded engine's assembly, the wrap columns
+        # writing their base columns' renders
         p = plan.geom.outfeat_sizes[-1]
         patches = patches.reshape(self.nw_pad, self.nh, self.batch, p, p,
-                                  3)[:self.nw]
-        # the reference's row-major overwrite order over base columns: the
-        # last columns' wrapping writes overwrite the row start
-        meta = torch.zeros((self.batch, plan.meta_h, plan.meta_w, 3),
-                           dtype=torch.float32, device=patches.device)
-        px = plan.geom.pixelspace_step
-        for i in range(self.nh):
-            for j in range(self.nw):
-                r, c, patch = i * px, j * px, patches[j, i]
-                if c + p <= plan.meta_w:
-                    meta[:, r:r + p, c:c + p] = patch
-                else:
-                    split = plan.meta_w - c
-                    meta[:, r:r + p, c:] = patch[:, :, :split]
-                    meta[:, r:r + p, :p - split] = patch[:, :, split:]
-        return meta
+                                  3)[:self.nw].transpose(0, 1).reshape(
+                                      self.nh * self.nw, self.batch, p, p, 3)
+        return scatter_patches(plan, patches, wrap_full_map(plan))
 
 
 def make_width_sharded_generate(g: Generator, plan: LatticePlan, mesh: Mesh,

@@ -19,6 +19,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from spgan_tpu_torch.geometry.coords import CoordsPartial
 from spgan_tpu_torch.ops.spatial import StitchGeometry, in_size_chain
 
 TEST_META_EXTRA_PAD = 3  # reference test_managers/global_config.py:1
@@ -50,6 +51,14 @@ class LatticePlan:
     @property
     def num_patches(self) -> int:
         return self.num_steps_h * self.num_steps_w
+
+    def coords_partial(self, batch: int, start: int, count: int,
+                       grid_partial: float) -> CoordsPartial:
+        """The crops of positions [start, start + count), each repeated
+        `batch` times (positions folded into the batch dim)."""
+        rep = np.repeat(self.cp_scalars[start:start + count], batch, axis=0)
+        return CoordsPartial.from_scalars(rep, self.x_total, self.y_total,
+                                          grid_partial)
 
 
 def build_close_loop_plan(g, target_h: int, target_w: int) -> LatticePlan:

@@ -7,6 +7,12 @@ in the SS planar convs (ss_disable_noise false; the sphere convs never
 take noise) and ss_mapping, an 8-layer mapping MLP on the global latent
 before the SS modulation.
 
+The styleGAN2 baseline family (styleGAN2_baseline, or use_ss false) has
+no SS (``Generator.ss`` is None): its TS takes the local latent (B,4,4,C)
+as the structure latent, in the zero-padding arch with a [1,3,3,1] blur,
+to out_res 64 or 128.  It has the forward and the weight maps only; the
+engines and the trainer refuse it, as the JAX package's do.
+
 Parameters are nested dicts/lists of float32 tensors with the JAX
 package's tree structure (so ``compat/from_jax.py`` carries weights across
 key for key); conv weights are OIHW and linear weights (out, in).
@@ -249,17 +255,21 @@ def ts_conv_plan(out_res: int, ts_input_size: int, channel_multiplier: int,
     def c(v):
         return max(8, int(round(v * s)))
 
-    if ts_input_size != 11:
+    if ts_input_size == 11:
+        base = [c(512)] * 6 + [c(256 * cm)] * 2
+        ext = [c(128 * cm), c(64 * cm), c(32 * cm), c(16 * cm)]
+        res_to_layers = {101: 8, 197: 10, 389: 12, 773: 14, 1541: 16}
+        if out_res not in res_to_layers:
+            raise NotImplementedError(f"no arch for out_res={out_res}")
+        n = res_to_layers[out_res]
+        chans = list(base)
+        for i in range((n - 8) // 2):
+            chans += [ext[i], ext[i]]
+    elif ts_input_size == 4:  # the styleGAN2 baseline
+        n = {128: 10, 64: 8}[out_res]
+        chans = [c(512)] * 8 + [c(256 * cm)] * 2
+    else:
         raise NotImplementedError(f"ts_input_size={ts_input_size}")
-    base = [c(512)] * 6 + [c(256 * cm)] * 2
-    ext = [c(128 * cm), c(64 * cm), c(32 * cm), c(16 * cm)]
-    res_to_layers = {101: 8, 197: 10, 389: 12, 773: 14, 1541: 16}
-    if out_res not in res_to_layers:
-        raise NotImplementedError(f"no arch for out_res={out_res}")
-    n = res_to_layers[out_res]
-    chans = list(base)
-    for i in range((n - 8) // 2):
-        chans += [ext[i], ext[i]]
     convs = [dict(out_ch=ch, upsample=(i % 2 == 0))
              for i, ch in enumerate(chans[:n])]
     to_rgbs = [dict(src=s_, tgt=s_ + 2) for s_ in range(1, n - 2, 2)]
@@ -286,8 +296,12 @@ class TextureSynthesizer:
                             self.channel_multiplier, self.channel_base)
 
     @property
+    def num_layers(self) -> int:
+        return len(self.plan()[0])
+
+    @property
     def n_latent(self) -> int:
-        return len(self.plan()[0]) + 1
+        return self.num_layers + 1
 
     def conv_specs_spatial(self) -> List[ConvSpec]:
         return [ConvSpec(upsample=c["upsample"],
@@ -306,6 +320,20 @@ class TextureSynthesizer:
         out_sizes = out_size_chain(self.conv_specs_spatial(),
                                    in_size or self.ts_input_size)
         return [int(out_sizes[src - 2]) for src in sorted(i2j)]
+
+    def noise_sizes(self, in_size: Optional[int] = None) -> List[int]:
+        """Output size of each conv, where its noise map applies, for a
+        structure latent of `in_size` (default ts_input_size): the
+        no-padding chain, or with zero padding 2x at each upsample and
+        the same size at each plain conv (4 -> 8 -> 8 -> 16 ...)."""
+        h = in_size or self.ts_input_size
+        if self.no_zero_pad:
+            return out_size_chain(self.conv_specs_spatial(), h)
+        sizes = []
+        for c in self.plan()[0]:
+            h = 2 * h if c["upsample"] else h
+            sizes.append(h)
+        return sizes
 
     def mapping_spec(self) -> EqualLinear:
         return EqualLinear(self.global_dim, self.global_dim, lr_mul=0.01,
@@ -425,7 +453,7 @@ def skip_margin(tables: dict) -> int:
 
 @dataclass(frozen=True)
 class Generator:
-    ss: StructureSynthesizer
+    ss: Optional[StructureSynthesizer]
     ts: TextureSynthesizer
     use_div_z: bool = True
 
@@ -436,24 +464,25 @@ class Generator:
             raise ValueError(
                 f"ss_coord_all_layers={tp.ss_coord_all_layers!r} is not "
                 "supported; only 'each_layer' (the shipped mode)")
-        if not tp.use_ss or tp.styleGAN2_baseline:
-            raise NotImplementedError("the port supports the SS generator only")
-        ss = StructureSynthesizer(
-            local_dim=tp.local_latent_dim, global_dim=tp.global_latent_dim,
-            coord_dim=tp.coord_num_dir, n_layers=tp.ss_n_layers,
-            unfold_radius=tp.ss_unfold_radius,
-            use_angular_div=tp.diversity_angular,
-            disable_noise=tp.ss_disable_noise,
-            use_mapping=tp.ss_mapping,
-            coord_grid=CoordGrid(
-                ts_input_size=tp.ts_input_size,
-                ss_unfold_size=tp.ss_unfold_size,
-                vert_sample_size=tp.coord_vert_sample_size,
-                hori_occupy_ratio=tp.coord_hori_occupy_ratio,
-                vert_cut_pt=tp.coord_vert_cut_pt,
-                num_dir=tp.coord_num_dir,
-                partial=tp.partial,
-                continuous=tp.coord_continuous))
+        ss = None
+        if tp.use_ss and not tp.styleGAN2_baseline:
+            ss = StructureSynthesizer(
+                local_dim=tp.local_latent_dim,
+                global_dim=tp.global_latent_dim,
+                coord_dim=tp.coord_num_dir, n_layers=tp.ss_n_layers,
+                unfold_radius=tp.ss_unfold_radius,
+                use_angular_div=tp.diversity_angular,
+                disable_noise=tp.ss_disable_noise,
+                use_mapping=tp.ss_mapping,
+                coord_grid=CoordGrid(
+                    ts_input_size=tp.ts_input_size,
+                    ss_unfold_size=tp.ss_unfold_size,
+                    vert_sample_size=tp.coord_vert_sample_size,
+                    hori_occupy_ratio=tp.coord_hori_occupy_ratio,
+                    vert_cut_pt=tp.coord_vert_cut_pt,
+                    num_dir=tp.coord_num_dir,
+                    partial=tp.partial,
+                    continuous=tp.coord_continuous))
         ts = TextureSynthesizer(
             out_res=(tp.patch_size if tp.training_modality == "patch"
                      else tp.full_size),
@@ -471,7 +500,9 @@ class Generator:
         from spgan_tpu_torch.device import resolve
 
         dev = resolve(device)
-        params = {"ts": self.ts.init(gen), "ss": self.ss.init(gen)}
+        params = {"ts": self.ts.init(gen)}
+        if self.ss is not None:
+            params["ss"] = self.ss.init(gen)
         return _tree_to(params, dev)
 
     def build_styles(self, params: dict, global_latent: torch.Tensor,
@@ -497,8 +528,8 @@ class Generator:
                 for s in self.ts.skip_sizes()]
 
     def apply(self, params: dict, *, global_latent: torch.Tensor,
-              local_latent: torch.Tensor, coords: torch.Tensor,
-              cp: CoordsPartial, noises: Sequence[torch.Tensor],
+              local_latent: torch.Tensor, coords: Optional[torch.Tensor],
+              cp: Optional[CoordsPartial], noises: Sequence[torch.Tensor],
               ss_noises: Optional[Sequence[torch.Tensor]] = None,
               inject_index: Optional[torch.Tensor] = None,
               ss_tables_mode: str = "fused",
@@ -520,21 +551,27 @@ class Generator:
         None measures them from the tables.  Returns {"gen":
         (B,patch,patch,3), "structure_latent", "styles"} (the training
         step takes the diversity loss of the structure latent,
-        ss.diversity_z_loss)."""
+        ss.diversity_z_loss).
+
+        A styleGAN2 baseline (ss None) takes local_latent (B,4,4,C) as
+        the structure latent; coords and cp are not read (None)."""
         dev = local_latent.device
-        sizes = self.ss.layer_sizes(local_latent.shape[1])
         grids = tables = skip_grids = skip_tables = None
-        if ss_tables_mode == "sample":
-            tables = self.ss.train_tables(cp, local_latent.shape[1])
+        if self.ss is None:
+            structure = local_latent
         else:
-            grids = patch_grids(cp, sizes, dev)
-        if ss_tables_mode == "fused":
-            tables = [tables_to(sphere_offset_tables_batch(cp, s, s), dev)
-                      for s in sizes]
-        structure = self.ss.apply(params["ss"], global_latent[:, 0],
-                                  local_latent, coords, grids, tables,
-                                  tables_mode=ss_tables_mode,
-                                  noises=ss_noises)
+            sizes = self.ss.layer_sizes(local_latent.shape[1])
+            if ss_tables_mode == "sample":
+                tables = self.ss.train_tables(cp, local_latent.shape[1])
+            else:
+                grids = patch_grids(cp, sizes, dev)
+            if ss_tables_mode == "fused":
+                tables = [tables_to(sphere_offset_tables_batch(cp, s, s),
+                                    dev) for s in sizes]
+            structure = self.ss.apply(params["ss"], global_latent[:, 0],
+                                      local_latent, coords, grids, tables,
+                                      tables_mode=ss_tables_mode,
+                                      noises=ss_noises)
         skip_sizes = self.ts.skip_sizes(structure.shape[1])
         if ss_tables_mode == "grid":
             skip_grids = patch_grids(cp, skip_sizes, dev)
@@ -581,9 +618,14 @@ class Generator:
         """Debug forward returning the RGB skip around each sphere skip
         conv ("to_rgb_i", "sphere_to_rgb_i") and the patch ("patch"), on
         the patch grids.  structure_latent, or global_latent with
-        local_latent and coords; styles, or global_latent (built as
-        apply builds them)."""
+        local_latent and coords (not on a styleGAN2 baseline); styles, or
+        global_latent (built as apply builds them)."""
         if structure_latent is None:
+            if self.ss is None:
+                raise ValueError(
+                    "get_to_rgb without a structure_latent needs a structure "
+                    "synthesizer; this is a styleGAN2 baseline generator "
+                    "(styleGAN2_baseline, or use_ss false: g.ss is None)")
             structure_latent = self.ss_on_grids(
                 params, global_latent[:, 0], local_latent, coords, cp)
         if styles is None:

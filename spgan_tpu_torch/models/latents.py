@@ -6,6 +6,7 @@ spgan_tpu/models/latents.py: the training draws).
   * sample_local: (B, S+2*ss_pad, S+2*ss_pad, C), including the SS padding
     ring; spatial_size_enlarge m widens S to round(m * (S // 2)) * 2 + 1
     (the extrapolated grids of the training loop).
+  * sample_circular_local: a closed-loop panorama's cylindrical field.
 """
 from __future__ import annotations
 
@@ -47,3 +48,13 @@ class LatentSampler:
         h, w = self.local_shape(spatial_size_enlarge)
         return torch.randn((batch, h, w, self.local_dim), generator=gen,
                            device=gen.device)
+
+    def sample_circular_local(self, gen: torch.Generator, batch: int,
+                              width_latent: int, height_in: int,
+                              height_padding: bool = True) -> torch.Tensor:
+        """A circular (cylindrical) latent field for closed-loop panoramas,
+        (B, H, width_latent, C) on gen's device: the width wraps, the
+        height gets the SS padding ring (with height_padding)."""
+        h = height_in + (2 * self.ss_unfold_size if height_padding else 0)
+        return torch.randn((batch, h, width_latent, self.local_dim),
+                           generator=gen, device=gen.device)

@@ -12,6 +12,20 @@ import torch
 import torch.nn.functional as F
 
 
+def l1_loss(a: torch.Tensor, b: torch.Tensor,
+            reduce_all: bool = False) -> torch.Tensor:
+    """Mean |a - b|, per sample (B,) or over everything."""
+    d = torch.abs(a - b)
+    return d.mean() if reduce_all else d.reshape(d.shape[0], -1).mean(1)
+
+
+def l2_loss(a: torch.Tensor, b: torch.Tensor,
+            reduce_all: bool = False) -> torch.Tensor:
+    """Mean (a - b)^2 / 2, per sample (B,) or over everything."""
+    d = 0.5 * torch.square(a - b)
+    return d.mean() if reduce_all else d.reshape(d.shape[0], -1).mean(1)
+
+
 def d_logistic_loss(real_pred: torch.Tensor,
                     fake_pred: torch.Tensor) -> torch.Tensor:
     return F.softplus(-real_pred).mean() + F.softplus(fake_pred).mean()
@@ -34,16 +48,20 @@ def d_r1_penalty(d_fn: Callable, params: dict, real_img: torch.Tensor,
     return grad.square().reshape(grad.shape[0], -1).sum(1).mean()
 
 
+def grad_reduce(grad: torch.Tensor) -> torch.Tensor:
+    """sqrt(mean(g^2)) over every non-batch axis: (B,)."""
+    return torch.sqrt(grad.square().mean(dim=tuple(range(1, grad.ndim))))
+
+
 def ppl_lengths(synth_fn: Callable, styles: torch.Tensor,
                 noise: torch.Tensor) -> torch.Tensor:
     """Path length per sample: |d <synth(styles), noise> / d styles|,
-    reduced as sqrt(mean(g^2)) over every non-batch axis.  `noise` is the
-    perturbation image, already including the 1/sqrt(H*W) scale (the
-    training step draws it with the step's other draws).  The graph is
-    kept."""
+    reduced by grad_reduce.  `noise` is the perturbation image, already
+    including the 1/sqrt(H*W) scale (the training step draws it with the
+    step's other draws).  The graph is kept."""
     img = synth_fn(styles)
     (g,) = torch.autograd.grad((img * noise).sum(), styles, create_graph=True)
-    return torch.sqrt(g.square().mean(dim=tuple(range(1, g.ndim))))
+    return grad_reduce(g)
 
 
 def g_path_regularize(lengths: torch.Tensor, mean_path_length: torch.Tensor,

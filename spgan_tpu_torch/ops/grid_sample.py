@@ -1,7 +1,7 @@
 """Bilinear grid sampling (align_corners=True, border padding), the
 straight-through 3x3 sampler of the sphere convs, and the row-offset tap
 conv of the TS sphere skip convs (counterpart of
-spgan_tpu/ops/grid_sample.py: the forms the panorama engine runs).
+spgan_tpu/ops/grid_sample.py).
 
 These are plain tensor ops in the JAX package too (XLA, no Pallas).
 Layout NHWC.
@@ -51,6 +51,18 @@ def bilinear_grid_sample_grouped(x: torch.Tensor, grid: torch.Tensor
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return (top * (1 - wy) + bot * wy).reshape(b, ho, wo, c)
+
+
+def bilinear_grid_sample(x: torch.Tensor, grid: torch.Tensor
+                         ) -> torch.Tensor:
+    """One grid per sample: x (B,H,W,C), grid (B,Ho,Wo,2)."""
+    return bilinear_grid_sample_grouped(x, grid)
+
+
+def bilinear_grid_sample_shared(x: torch.Tensor, grid: torch.Tensor
+                                ) -> torch.Tensor:
+    """One grid for the whole batch: x (B,H,W,C), grid (Ho,Wo,2)."""
+    return bilinear_grid_sample_grouped(x, grid[None])
 
 
 def nearest_grid_sample_shared(x: torch.Tensor, grid: torch.Tensor

@@ -37,6 +37,12 @@ def fused_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
     return F.leaky_relu(x, negative_slope) * scale
 
 
+def scaled_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2
+                      ) -> torch.Tensor:
+    """LeakyReLU * sqrt(2), without a bias."""
+    return F.leaky_relu(x, negative_slope) * SQRT2
+
+
 @dataclass(frozen=True)
 class EqualLinear:
     in_dim: int

@@ -18,7 +18,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from spgan_tpu_torch.infer.calibrate import resize_align_corners
 from spgan_tpu_torch.ops.linear import EqualLinear, fused_leaky_relu
 from spgan_tpu_torch.ops.upfirdn import Blur, Upsample
 
@@ -133,6 +132,10 @@ class ModulatedConv2d:
         if self.upsample:
             y = conv_transpose2_nhwc(xs, w)[:, 1:-1, 1:-1, :]
             if self.demodulate:
+                # imported here: infer.calibrate imports the ops package
+                from spgan_tpu_torch.infer.calibrate import (
+                    resize_align_corners)
+
                 demod = resize_align_corners(demod, y.shape[1], y.shape[2])
                 y = y * demod.to(x.dtype)
             return self._blur()(y)
@@ -185,6 +188,21 @@ class NoiseInjection:
         if noise is None:
             return x
         return x + params["weight"].to(x.dtype) * noise
+
+
+@dataclass(frozen=True)
+class ConstantInput:
+    """A learned (1, size, size, channel) input, tiled over the batch."""
+
+    channel: int
+    size: int = 4
+
+    def init(self, gen: torch.Generator) -> dict:
+        return {"input": torch.randn((1, self.size, self.size, self.channel),
+                                     generator=gen)}
+
+    def apply(self, params: dict, batch: int) -> torch.Tensor:
+        return params["input"].expand(batch, -1, -1, -1)
 
 
 @dataclass(frozen=True)

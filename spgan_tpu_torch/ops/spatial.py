@@ -62,6 +62,14 @@ def in_size_chain(specs: Sequence[ConvSpec], out_size: int) -> List[int]:
     return sizes[::-1]
 
 
+def calc_out_spatial_size(specs: Sequence[ConvSpec], in_size: int) -> int:
+    return out_size_chain(specs, in_size)[-1]
+
+
+def calc_in_spatial_size(specs: Sequence[ConvSpec], out_size: int) -> int:
+    return in_size_chain(specs, out_size)[0]
+
+
 @dataclass(frozen=True)
 class StitchGeometry:
     """Step sizes that make independently generated patches consistent in

@@ -23,6 +23,15 @@ def make_kernel(k: Union[Sequence[float], np.ndarray]) -> np.ndarray:
     return k / k.sum()
 
 
+def gaussian_kernel(kernel_size: int, std: float = 1.0) -> np.ndarray:
+    """A normalised (kernel_size, kernel_size) Gaussian stencil (float64),
+    the reference's scipy.signal.gaussian outer product."""
+    n = np.arange(kernel_size) - (kernel_size - 1) / 2.0
+    g = np.exp(-(n ** 2) / (2 * std * std))
+    k2 = np.outer(g, g)
+    return k2 / k2.sum()
+
+
 @functools.lru_cache(maxsize=None)
 def _fir_weight(flat: Tuple[float, ...], kh: int, channels: int,
                 dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -68,6 +77,12 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
                       padding=((pad[0], pad[1] + extra),
                                (pad[0], pad[1] + extra)),
                       stride=down)
+
+
+def blur(x: torch.Tensor, kernel: np.ndarray, pad: Tuple[int, int]
+         ) -> torch.Tensor:
+    """FIR filter with padding (pad0, pad1) on both spatial dims."""
+    return upfirdn2d(x, kernel, up=1, down=1, pad=pad)
 
 
 @dataclass(frozen=True)

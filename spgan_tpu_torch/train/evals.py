@@ -16,7 +16,6 @@ from spgan_tpu_torch.evalkit.fid import (FIDEvaluator, compute_stats,
                                          frechet_distance)
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.models.latents import LatentSampler
-from spgan_tpu_torch.ops.spatial import out_size_chain
 
 INCEPTION_ENV = "SPGAN_TPU_INCEPTION"
 
@@ -98,8 +97,7 @@ class TrainFID:
             coords, _, cp = grid.sample_training(gen, n)
         dev = gen.device
         noises = [torch.randn((n, s, s, 1), generator=gen, device=dev)
-                  for s in out_size_chain(g.ts.conv_specs_spatial(),
-                                          g.ss.noise_sizes(size)[-1])]
+                  for s in g.ts.noise_sizes(g.ss.noise_sizes(size)[-1])]
         ss_noises = None if g.ss.disable_noise else [
             torch.randn((n, s, s, 1), generator=gen, device=dev)
             for s in g.ss.noise_sizes(size)]

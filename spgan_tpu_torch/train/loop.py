@@ -60,12 +60,12 @@ from spgan_tpu_torch.data.pipeline import make_train_pipeline
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.models.latents import LatentSampler
-from spgan_tpu_torch.ops.spatial import out_size_chain
 from spgan_tpu_torch.parallel.mesh import (Mesh, barrier, broadcast_int,
                                            make_mesh, replicate, shard_batch)
 from spgan_tpu_torch.train.checkpoint import CheckpointManager, save_best
 from spgan_tpu_torch.train.state import TrainState, create_train_state
-from spgan_tpu_torch.train.step import _DTYPES, make_train_step
+from spgan_tpu_torch.train.step import (_DTYPES, make_train_step,
+                                        refuse_baseline)
 from spgan_tpu_torch.tree import tree_leaves, tree_map
 from spgan_tpu_torch.utils.misc import backup_files, import_func
 
@@ -163,7 +163,7 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
         in_ts = g.ss.noise_sizes(size)[-1]
         noises = [torch.randn((n, s, s, 1), generator=gen,
                               device=dev).to(cdt)
-                  for s in out_size_chain(g.ts.conv_specs_spatial(), in_ts)]
+                  for s in g.ts.noise_sizes(in_ts)]
         ss_noises = None if g.ss.disable_noise else [
             torch.randn((n, s, s, 1), generator=gen, device=dev).to(cdt)
             for s in g.ss.noise_sizes(size)]
@@ -328,6 +328,7 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
     step computes in float32 as the reference's float32 config does.
     mesh: the data-parallel world (default: the initialised process
     group's, else a world of one); device is this rank's."""
+    refuse_baseline(cfg)
     tp, lp = cfg.train_params, cfg.log_params
     if tp.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False

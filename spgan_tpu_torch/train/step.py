@@ -44,7 +44,6 @@ from spgan_tpu_torch.models import losses
 from spgan_tpu_torch.models.discriminator import Discriminator
 from spgan_tpu_torch.models.generator import Generator, pair_inputs, tables_to
 from spgan_tpu_torch.models.latents import LatentSampler
-from spgan_tpu_torch.ops.spatial import out_size_chain
 from spgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
                                            all_reduce_mean_, shard_batch)
 from spgan_tpu_torch.train.state import (TrainState, ema_update, global_norm,
@@ -98,6 +97,20 @@ def shard_draws(draws, mesh: Mesh):
         for f in dataclasses.fields(draws)})
 
 
+def refuse_baseline(cfg: Config) -> None:
+    """Raise for a styleGAN2 baseline config: the step draws SS crops and
+    runs the SS every phase (the JAX package's step fails on it with an
+    AttributeError)."""
+    tp = cfg.train_params
+    if tp.styleGAN2_baseline or not tp.use_ss:
+        raise ValueError(
+            f"styleGAN2_baseline: {tp.styleGAN2_baseline}, use_ss: "
+            f"{tp.use_ss}: the styleGAN2 baseline family has no structure "
+            "synthesizer and cannot be trained here (the training step "
+            "needs one, as the JAX package's does); Generator.apply "
+            "renders it")
+
+
 class TrainStep:
     """step(state, real_patch, real_ac, gen, do_r1, do_ppl) -> (state,
     metrics).  real_patch (B,P,P,3) in [-1,1] and real_ac (B,3) on the
@@ -109,6 +122,7 @@ class TrainStep:
                  draw: Optional[Callable[..., StepDraws]] = None,
                  freeze_g_mask: Optional[Any] = None,
                  mesh: Optional[Mesh] = None):
+        refuse_baseline(cfg)
         tp = cfg.train_params
         self.mesh = mesh if mesh is not None else Mesh()
         # a process group (NCCL's world of one included) runs the
@@ -126,8 +140,7 @@ class TrainStep:
             ts_input_size=tp.ts_input_size, ss_unfold_size=tp.ss_unfold_size,
             mixing=tp.mixing)
         self.skip_margins = g.training_skip_margins()
-        self.noise_sizes = out_size_chain(g.ts.conv_specs_spatial(),
-                                          tp.ts_input_size)
+        self.noise_sizes = g.ts.noise_sizes(tp.ts_input_size)
         self.ss_noise_sizes = ([] if g.ss.disable_noise else
                                g.ss.noise_sizes(self.sampler.local_shape()[0]))
         if draw is not None:

@@ -31,17 +31,20 @@ def generator_flops(g, batch: int = 1) -> Dict[str, int]:
     style = g.ts.global_dim
     ss = g.ss
     flops_ss = 0
-    cin = ss.local_dim + ss.coord_dim
-    for s in ss.layer_sizes(ss.coord_grid.ss_spatial_size):
-        # sphere conv (k=3 over the 3x-resampled map, size preserving)
-        flops_ss += _sampler_flops(cin, s, s, 3)
-        flops_ss += _modconv_flops(cin, ss.local_dim, 3, style, s, s)
-        # residual 1x1 + lrelu
-        flops_ss += ss.local_dim * ss.local_dim * s * s + ss.local_dim * s * s
-        # planar k7 (shrinks by 2 * unfold_radius)
-        so = s - 2 * ss.unfold_radius
-        flops_ss += _modconv_flops(cin, ss.local_dim,
-                                   2 * ss.unfold_radius + 1, style, so, so)
+    if ss is not None:  # the styleGAN2 baseline has no SS
+        cin = ss.local_dim + ss.coord_dim
+        for s in ss.layer_sizes(ss.coord_grid.ss_spatial_size):
+            # sphere conv (k=3 over the 3x-resampled map, size preserving)
+            flops_ss += _sampler_flops(cin, s, s, 3)
+            flops_ss += _modconv_flops(cin, ss.local_dim, 3, style, s, s)
+            # residual 1x1 + lrelu
+            flops_ss += (ss.local_dim * ss.local_dim * s * s
+                         + ss.local_dim * s * s)
+            # planar k7 (shrinks by 2 * unfold_radius)
+            so = s - 2 * ss.unfold_radius
+            flops_ss += _modconv_flops(cin, ss.local_dim,
+                                       2 * ss.unfold_radius + 1, style, so,
+                                       so)
 
     flops_ts = g.ts.n_mlp * (2 * style * style + 2 * style)  # mapping MLP
     convs, to_rgbs, i2j = g.ts.plan()

@@ -1,10 +1,12 @@
 """Small utilities (counterpart of spgan_tpu/utils/misc.py: the class-path
-resolver of the yaml configs, seeding and the code snapshot of a training
-run)."""
+resolver of the yaml configs, seeding, the code snapshot of a training
+run and an advisory file lock)."""
 from __future__ import annotations
 
 import importlib
+import os
 import random
+import time
 from typing import Any
 
 PACKAGE = "spgan_tpu_torch"
@@ -64,7 +66,6 @@ def backup_files(cur_dir: str, backup_dir: str) -> int:
     """Copy the source files under `cur_dir` into `backup_dir` (the
     training run's code snapshot, as the reference's libs/backup.py);
     returns how many."""
-    import os
     import shutil
 
     n = 0
@@ -80,3 +81,40 @@ def backup_files(cur_dir: str, backup_dir: str) -> int:
                 shutil.copy2(src, dst)
                 n += 1
     return n
+
+
+class FileLock:
+    """Advisory lock file (`path` + ".lock") around shared log writes: a
+    `with` block waits, polling every `poll` s, until it creates the lock
+    file; after `timeout` s it takes a lock it finds as stale."""
+
+    def __init__(self, path: str, timeout: float = 30.0, poll: float = 0.1):
+        self.lock_path = path + ".lock"
+        self.timeout = timeout
+        self.poll = poll
+        self._fd = None
+
+    def __enter__(self):
+        deadline = time.time() + self.timeout
+        while True:
+            try:
+                self._fd = os.open(self.lock_path,
+                                   os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                return self
+            except FileExistsError:
+                if time.time() > deadline:
+                    try:  # stale: take it
+                        os.unlink(self.lock_path)
+                    except FileNotFoundError:
+                        pass
+                time.sleep(self.poll)
+
+    def __exit__(self, *exc):
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+            try:
+                os.unlink(self.lock_path)
+            except FileNotFoundError:
+                pass
+        return False

@@ -194,7 +194,7 @@ def train_cli(_mesh, out, coordinator, n, rank, yaml_path, iters):
 
 
 # --------------------------------------------------------------- inference
-def infer_generator(ss_n_layers=2):
+def infer_generator(ss_n_layers=2, ss_disable_noise=True):
     """The port's tiny generator of tests/helpers/port_tiny.py with
     `ss_n_layers` SS layers (2: window 23; 1: window 17, halo 11)."""
     from spgan_tpu_torch.config import Config
@@ -202,7 +202,17 @@ def infer_generator(ss_n_layers=2):
 
     cfg = tiny(Config())
     cfg.train_params.ss_n_layers = int(ss_n_layers)
+    cfg.train_params.ss_disable_noise = ss_disable_noise
     return cfg, narrow(Generator.from_config(cfg))
+
+
+def ss_noise_params(g, weight):
+    """The port's parameters of `g` (ss_disable_noise false) from seed 0,
+    every SS noise weight set to `weight`."""
+    params = g.init(torch.Generator().manual_seed(0), device="cpu")
+    for b in params["ss"]["blocks"]:
+        b["planar"]["noise"]["weight"].fill_(weight)
+    return params
 
 
 def plan_fields(plan, g, batch, seed):
@@ -270,15 +280,33 @@ def halo(mesh, out, npz, height, width, fields_npz, batch=1, seed=5):
                                        np.array(fn.pad))
 
 
+def halo_ss_noise(mesh, out, height, width, weight=0.5, seed=5):
+    """The halo path with ss_disable_noise false, from a seed (every rank
+    draws the SS noise maps), on ss_noise_params(weight); rank 0 keeps
+    the meta image."""
+    from spgan_tpu_torch.infer.halo import make_width_sharded_generate
+    from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
+
+    cfg, g = infer_generator(1, ss_disable_noise=False)
+    fn = make_width_sharded_generate(
+        g, build_close_loop_plan(g, int(height), int(width)), mesh, 1,
+        cfg.train_params.partial, device="cpu")
+    meta = fn(ss_noise_params(g, float(weight)), int(seed))
+    if meta is not None:
+        out["seed"] = meta.numpy()
+
+
 def infer_paths(mesh, out, tmp):
-    """sharded at 128x672 and halo at the widths of the fields files that
-    tests/test_torch_scale_infer.py wrote under tmp; keys prefixed
-    "sharded/" and "halo<width>/"."""
+    """sharded at 128x672, halo at the widths of the fields files that
+    tests/test_torch_scale_infer.py wrote under tmp and the halo with SS
+    noise at 128x480; keys prefixed "sharded/", "halo<width>/" and
+    "halo_ss_noise/"."""
     for name, fn, args in (
             [("sharded", sharded, (f"{tmp}/params2.npz", 128, 672))]
             + [(f"halo{w}", halo, (f"{tmp}/params1.npz", 128, w,
                                    f"{tmp}/fields{w}.npz"))
-               for w in (384, 480)]):
+               for w in (384, 480)]
+            + [("halo_ss_noise", halo_ss_noise, (128, 480))]):
         res = {}
         fn(mesh, res, *args)
         out.update({f"{name}/{k}": v for k, v in res.items()})

@@ -1,7 +1,8 @@
 """The port's scale-out inference paths against the JAX package, in worlds
 of CPU processes over gloo (tests/helpers/torch_world.py; one world
-renders the sharded engine and the halo path at both widths, once per
-module, while the test process compiles JAX's references):
+renders the sharded engine, the halo path at both widths and the halo
+path with SS noise, once per module, while the test process compiles
+JAX's references):
 
   * the lattice-sharded engine (PanoramaEngine.make_sharded_generate) on
     2 ranks against JAX's make_sharded_generate on a 2-device CPU mesh,
@@ -12,8 +13,11 @@ module, while the test process compiles JAX's references):
     from its key (repeated here as halo.py draws them), at ss_n_layers 1
     (window 17, halo 11), height 128, widths 384 (4 columns) and 480 (5
     columns: pad 1);
-  * N ranks against 1 rank, bit for bit; `--engine sharded|halo` through
-    the infer CLI, in a world of one and under torchrun's environment.
+  * N ranks against 1 rank, bit for bit (the halo path with SS noise
+    too); the halo path with SS noise against the port's folded engine,
+    since JAX's halo drops the SS noise maps (fault C8); `--engine
+    sharded|halo` through the infer CLI, in a world of one and under
+    torchrun's environment.
 
 Float32 on both sides (JAX's defaults off a TPU: the sphere convs on the
 patch grids in XLA; they compile in less than half the time of its
@@ -86,9 +90,10 @@ def _jax_halo_fields(g, plan, key, batch=1):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """One 2-rank world renders the sharded engine and the halo path at
-    both widths (helpers.scale_scenarios.infer_paths) while this process
-    compiles JAX's references and runs the 1-rank halo."""
+    """One 2-rank world renders the sharded engine, the halo path at both
+    widths and the halo path with SS noise
+    (helpers.scale_scenarios.infer_paths) while this process compiles
+    JAX's references and runs the 1-rank halos."""
     tmp = tmp_path_factory.mktemp("worlds")
     (cfg2, jg2, jp2), (cfg1, jg1, jp1) = (_jax_generator(2),
                                           _jax_generator(1))
@@ -120,15 +125,19 @@ def worlds(tmp_path_factory):
                     str(tmp / f"fields{w}.npz"))
             halo[w] = dict(want=np.asarray(fn(jp1, key)),
                            fields=halo_fields[w], one=one)
+        ss_noise = {"one": {}, "off": {}}
+        for k, wgt in (("one", 0.5), ("off", 0.0)):
+            sc.halo_ss_noise(Mesh(), ss_noise[k], 128, 480, wgt)
     except BaseException:
         world.close()
         raise
     ranks = world.results()
-    for name, d in [("sharded", sharded)] + [(f"halo{w}", halo[w])
-                                             for w in HALO_WIDTHS]:
+    for name, d in ([("sharded", sharded)]
+                    + [(f"halo{w}", halo[w]) for w in HALO_WIDTHS]
+                    + [("halo_ss_noise", ss_noise)]):
         d["ranks"] = [{k[len(name) + 1:]: v for k, v in r.items()
                        if k.startswith(name + "/")} for r in ranks]
-    return sharded, halo, tmp / "params1.npz"
+    return sharded, halo, tmp / "params1.npz", ss_noise
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +216,19 @@ def test_halo_matches_the_folded_engine_on_its_fields(halo, width):
                                atol=2e-4)
 
 
+def test_halo_with_ss_noise_n_ranks_equal_one_rank_bit_for_bit(worlds):
+    """ss_disable_noise false at 128x480 (5 columns, 3 a rank, one padded
+    wrap column) from a seed: 2 ranks equal 1 rank bit for bit (every
+    rank draws the same SS noise maps), and the SS noise weights moving
+    from 0 to 0.5 move the image."""
+    res = worlds[3]
+    r0 = res["ranks"][0]["seed"]
+    assert r0.shape == (1, 389, 480, 3) and np.isfinite(r0).all()
+    assert "seed" not in res["ranks"][1]
+    np.testing.assert_array_equal(r0, res["one"]["seed"])
+    assert np.abs(r0 - res["off"]["seed"]).max() > 1e-3
+
+
 def test_halo_assertions_keep_jax_messages():
     cfg, g = sc.infer_generator(1)
     plan = build_close_loop_plan(g, 128, 384)   # 4 columns, window 17
@@ -228,8 +250,10 @@ def test_c8_jax_halo_renders_without_the_ss_noise():
     """Fault C8: with ss_disable_noise false, JAX's halo body passes no SS
     noise maps (halo.py:228-229): its image does not move when the SS
     noise weights do, while the folded engine's does (the port's folded
-    engine here, on the same weights).  The port's halo refuses that
-    configuration, naming it."""
+    engine here, on the same weights).  The port's halo renders with the
+    maps: it equals the port's folded engine on the halo's own fields
+    (global_fields, the SS noise maps after the TS noise fields) at both
+    weights."""
     cfg, jg, jp = _jax_generator(1, ss_disable_noise=False)
     plan = jplan(jg, 128, 384)
     fn = jhalo(jg, plan, jmesh(jax.devices()[:1]), 1,
@@ -247,25 +271,23 @@ def test_c8_jax_halo_renders_without_the_ss_noise():
     assert np.isfinite(off).all()
     np.testing.assert_array_equal(on, off)
 
-    tcfg = tiny(Config())
-    tcfg.train_params.ss_n_layers = 1
-    tcfg.train_params.ss_disable_noise = False
-    g = narrow(Generator.from_config(tcfg))
+    tcfg, g = sc.infer_generator(1, ss_disable_noise=False)
     eng = PanoramaEngine(g=g, plan=build_close_loop_plan(g, 128, 384),
                          batch=1, grid_partial=tcfg.train_params.partial,
                          device="cpu")
-    fields = eng.sample_fields(torch.Generator().manual_seed(0))
+    fn = make_width_sharded_generate(g, eng.plan, Mesh(), 1,
+                                     tcfg.train_params.partial, device="cpu")
+    fields = fn.global_fields(5)
+    assert [tuple(n.shape) for n in fields[2][len(eng.plan.noise_sizes):]] \
+        == [(1, s, s, 1) for s in g.ss.noise_sizes(eng.plan.window)]
     metas = []
     for wgt in (0.0, 0.5):
-        params = g.init(torch.Generator().manual_seed(0), device="cpu")
-        for b in params["ss"]["blocks"]:
-            b["planar"]["noise"]["weight"].fill_(wgt)
+        params = sc.ss_noise_params(g, wgt)
         metas.append(eng.generate_from_fields(params, *fields))
+        np.testing.assert_allclose(fn(params, 5).numpy(),
+                                   metas[-1].numpy(), atol=2e-4)
     assert bool(metas[0].isfinite().all())
     assert float((metas[1] - metas[0]).abs().max()) > 1e-3
-    with pytest.raises(ValueError, match="ss_disable_noise false"):
-        make_width_sharded_generate(g, eng.plan, Mesh(), 1,
-                                    tcfg.train_params.partial, device="cpu")
 
 
 # --------------------------------------------------------------- the CLI
