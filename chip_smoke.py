@@ -192,6 +192,27 @@ def card() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+def _launches(kernel: str) -> int:
+    """A kernel wrapper's launch counter (the port's utils/trace.py)."""
+    from spgan_tpu_torch.utils import trace
+
+    return trace.counters().get(f"spgan.{kernel}.launches", 0)
+
+
+def _counts():
+    """The three kernel wrappers' launch counters."""
+    return {"fused_sphere_conv_grouped": _launches("sphere_conv.grouped"),
+            "fused_sphere_conv": _launches("sphere_conv"),
+            "sphere_sample_taps": _launches("sphere_sample")}
+
+
+def _zero_counts():
+    """Zero every counter of the port's tracer."""
+    from spgan_tpu_torch.utils import trace
+
+    trace.reset()
+
+
 def time_ms(fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -385,7 +406,6 @@ def phase_parity(planar=False):
     from spgan_tpu_torch.infer.stitcher import (build_close_loop_plan,
                                                 build_infinite_plan)
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
 
     g = Generator.from_config(tiny_config(Config))
     object.__setattr__(g.ts, "channel_base", 48)
@@ -399,10 +419,10 @@ def phase_parity(planar=False):
         gl, z, noises = PanoramaEngine(
             g=g, plan=plan, batch=2, device="cpu").sample_fields(
                 torch.Generator().manual_seed(3))
-        sk.fused_sphere_conv_grouped.launches = 0
+        _zero_counts()
         metas[dev] = eng.generate_from_fields(
             params, gl.to(dev), z.to(dev), [n.to(dev) for n in noises]).cpu()
-    launched = sk.fused_sphere_conv_grouped.launches
+    launched = _launches("sphere_conv.grouped")
     want = g.ss.n_layers * len(eng._render_idx) // eng.patch_chunk
     if launched != want:
         raise AssertionError(f"tiny engine on cuda: {launched} grouped-kernel "
@@ -422,8 +442,6 @@ def phase_engine(card_str):
     from spgan_tpu_torch.infer.engine import PanoramaEngine
     from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
 
     cfg = Config()
     g = Generator.from_config(cfg)
@@ -439,18 +457,14 @@ def phase_engine(card_str):
     torch.cuda.synchronize()
     print(f"[engine] warm-up generate {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    sk.fused_sphere_conv_grouped.launches = 0
-    sk.fused_sphere_conv.launches = 0
-    ss.sphere_sample_taps.launches = 0
+    _zero_counts()
     per_ms = []
     for _ in range(TIMED_GENERATES):
         t0 = time.perf_counter()
         meta = eng.generate(params, gen)
         torch.cuda.synchronize()
         per_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches,
-                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    launches = _counts()
     dt = sum(per_ms) / 1e3
     want = (cfg.task.batch_size, 581, 768, 3)
     if tuple(meta.shape) != want or not bool(meta.isfinite().all()):
@@ -493,20 +507,14 @@ def run_cli(argv, want_per_batch):
     """One in-process run of the inference CLI with every launch count at
     0 before it; returns (manager, grouped-kernel launches per batch)."""
     from spgan_tpu_torch.infer.__main__ import main
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
 
-    sk.fused_sphere_conv_grouped.launches = 0
-    sk.fused_sphere_conv.launches = 0
-    ss.sphere_sample_taps.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     manager = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_batches = manager.cur_global_id // manager.engine.batch
-    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches,
-                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    launches = _counts()
     per_batch = launches["fused_sphere_conv_grouped"] / n_batches
     if per_batch != want_per_batch or launches["fused_sphere_conv"] \
             or launches["sphere_sample_taps"]:
@@ -684,8 +692,6 @@ def phase_patch():
     from spgan_tpu_torch.geometry.coords import CoordsPartial
     from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.ops.spatial import out_size_chain
 
     cfg = Config()
@@ -706,17 +712,13 @@ def phase_patch():
     z = torch.randn((B, win, win, 256), generator=gen, device="cuda").to(bf)
     noises = [torch.randn((B, s, s, 1), generator=gen, device="cuda").to(bf)
               for s in out_size_chain(g.ts.conv_specs_spatial(), 11)]
-    sk.fused_sphere_conv_grouped.launches = 0
-    sk.fused_sphere_conv.launches = 0
-    ss.sphere_sample_taps.launches = 0
+    _zero_counts()
     with torch.inference_mode():
         img = g.apply(params, global_latent=gl, local_latent=z,
                       coords=torch.as_tensor(coords).cuda(), cp=cp,
                       noises=noises)["gen"]
     torch.cuda.synchronize()
-    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches,
-                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    launches = _counts()
     if tuple(img.shape) != (B, 101, 101, 3) or not bool(img.isfinite().all()):
         raise AssertionError(f"patch {tuple(img.shape)} finite="
                              f"{bool(img.isfinite().all())}")
@@ -909,7 +911,6 @@ def _moved(obj, dev):
 
 
 def phase_train_parity():
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.train.state import create_train_state
     from spgan_tpu_torch.train.step import make_train_step
 
@@ -924,7 +925,7 @@ def phase_train_parity():
     out = {}
     for dev in ("cpu", "cuda"):
         st, dr = _moved(state, dev), _moved(draws, dev)
-        ss.sphere_sample_taps.launches = 0
+        _zero_counts()
         gd, md = step.d_grads(st.params_g, st.params_d, real.to(dev),
                               real_ac.to(dev), dr.d)
         gr, r1 = step.r1_grads(st.params_d, real.to(dev), real_ac.to(dev))
@@ -934,9 +935,9 @@ def phase_train_parity():
         if dev == "cuda":
             torch.cuda.synchronize()
             want = 3 * g.ss.n_layers
-            if ss.sphere_sample_taps.launches != want:
+            if _launches("sphere_sample") != want:
                 raise AssertionError(
-                    f"tiny train phases on cuda: {ss.sphere_sample_taps.launches}"
+                    f"tiny train phases on cuda: {_launches('sphere_sample')}"
                     f" tap-sampler launches, want {want}")
         out[dev] = ({**md, **mg, "r1": r1, "path": pen, "path_lengths": plen},
                     {"d": gd, "r1": gr, "g": gg, "ppl": gp})
@@ -972,8 +973,6 @@ def phase_train(card_str):
     from spgan_tpu_torch.data.pipeline import TrainPipeline
     from spgan_tpu_torch.models.discriminator import Discriminator
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.train.state import create_train_state
     from spgan_tpu_torch.train.step import make_train_step
     from spgan_tpu_torch.tree import tree_leaves
@@ -1007,22 +1006,18 @@ def phase_train(card_str):
     print(f"[train] warm-up R1+PPL step {time.perf_counter() - t0:.2f} s")
     s0 = state
     torch.cuda.reset_peak_memory_stats()
-    sk.fused_sphere_conv_grouped.launches = 0
-    sk.fused_sphere_conv.launches = 0
-    ss.sphere_sample_taps.launches = 0
+    _zero_counts()
     per_ms, per_launch = [], []
     for i in range(TIMED_TRAIN_STEPS + 1):
         reg = i == TIMED_TRAIN_STEPS
-        n0 = ss.sphere_sample_taps.launches
+        n0 = _launches("sphere_sample")
         t0 = time.perf_counter()
         state, m = run(1 + i, reg)
         torch.cuda.synchronize()
         per_ms.append((time.perf_counter() - t0) * 1e3)
-        per_launch.append(ss.sphere_sample_taps.launches - n0)
+        per_launch.append(_launches("sphere_sample") - n0)
         check(m, f"step {i}")
-    launches = {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-                "fused_sphere_conv": sk.fused_sphere_conv.launches,
-                "sphere_sample_taps": ss.sphere_sample_taps.launches}
+    launches = _counts()
     want = [2 * g.ss.n_layers] * TIMED_TRAIN_STEPS + [3 * g.ss.n_layers]
     if per_launch != want or launches["fused_sphere_conv_grouped"] \
             or launches["fused_sphere_conv"]:
@@ -1175,8 +1170,6 @@ def phase_train_cli(card_str, plain_step_ms):
                                                SyntheticPanoramas)
     from spgan_tpu_torch.models.discriminator import Discriminator
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.train import loop
     from spgan_tpu_torch.train.checkpoint import CheckpointManager
     from spgan_tpu_torch.train.state import create_train_state
@@ -1215,9 +1208,7 @@ def phase_train_cli(card_str, plain_step_ms):
                                  "one beyond its data file and ticks")
         tp = cfg.train_params
 
-        sk.fused_sphere_conv_grouped.launches = 0
-        sk.fused_sphere_conv.launches = 0
-        ss.sphere_sample_taps.launches = 0
+        _zero_counts()
         pipes = []
         t0 = time.perf_counter()
         state, out1 = _run_train_cli([yaml_path, "--max-iters", "20"], pipes,
@@ -1240,10 +1231,7 @@ def phase_train_cli(card_str, plain_step_ms):
         # the loop renders grids only into tensorboard (as the JAX loop)
         tb = importlib.util.find_spec("tensorboardX") is not None
         per_forward = Generator.from_config(cfg).ss.n_layers
-        launches = {
-            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-            "fused_sphere_conv": sk.fused_sphere_conv.launches,
-            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        launches = _counts()
         want = 2 * per_forward * 30 + (3 * 3 * per_forward if tb else 0)
         if launches != {"fused_sphere_conv_grouped": 0,
                         "fused_sphere_conv": 0, "sphere_sample_taps": want}:
@@ -1252,10 +1240,10 @@ def phase_train_cli(card_str, plain_step_ms):
 
         # the image grids of the EMA generator, called once here
         g = Generator.from_config(cfg)
-        n0 = ss.sphere_sample_taps.launches
+        n0 = _launches("sphere_sample")
         grids = loop.make_image_grids(cfg, g, seed=0, device="cuda")(
             state.params_g_ema, state.step)
-        grid_launches = ss.sphere_sample_taps.launches - n0
+        grid_launches = _launches("sphere_sample") - n0
         shapes = {k: v.shape for k, v in grids.items()}
         if shapes != {"samples/ema": (202, 808, 3),
                       "samples/style_diversity": (101, 808, 3),
@@ -1369,8 +1357,6 @@ def phase_train_cli_synthetic(card_str, plain_step_ms, spr_iter_ms):
     from spgan_tpu_torch.config import load_config
     from spgan_tpu_torch.data.pipeline import TrainPipeline
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.tree import flatten
 
     shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1410,9 +1396,7 @@ def phase_train_cli_synthetic(card_str, plain_step_ms, spr_iter_ms):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_synthetic_")
     try:
         os.chdir(tmp)
-        sk.fused_sphere_conv_grouped.launches = 0
-        sk.fused_sphere_conv.launches = 0
-        ss.sphere_sample_taps.launches = 0
+        _zero_counts()
         pipes, per_call = [], []
         for kind in order:
             if kind == "thread":
@@ -1429,10 +1413,7 @@ def phase_train_cli_synthetic(card_str, plain_step_ms, spr_iter_ms):
                                      "weights")
             # iteration 0 is an R1 iteration, 1 the first plain one
             per_call.append(np.diff(pipes[-1].stamps)[2:] * 1e3)
-        launches = {
-            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-            "fused_sphere_conv": sk.fused_sphere_conv.launches,
-            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        launches = _counts()
         if launches != {"fused_sphere_conv_grouped": 0,
                         "fused_sphere_conv": 0,
                         "sphere_sample_taps": len(order) * want}:
@@ -1621,8 +1602,6 @@ def phase_train_options(card_str, plain_step_ms):
     from spgan_tpu_torch.data.pipeline import SyntheticPanoramas, TrainPipeline
     from spgan_tpu_torch.models.discriminator import Discriminator
     from spgan_tpu_torch.models.generator import Generator
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.ops.spatial import out_size_chain
     from spgan_tpu_torch.train import loop
     from spgan_tpu_torch.train.checkpoint import CheckpointManager
@@ -1727,33 +1706,22 @@ def phase_train_options(card_str, plain_step_ms):
               f"the ext mults {mults} on the patch grids, none), call B "
               f"{want_b}")
 
-        def counts():
-            return {"fused_sphere_conv_grouped":
-                    sk.fused_sphere_conv_grouped.launches,
-                    "fused_sphere_conv": sk.fused_sphere_conv.launches,
-                    "sphere_sample_taps": ss.sphere_sample_taps.launches}
-
-        def zero():
-            sk.fused_sphere_conv_grouped.launches = 0
-            sk.fused_sphere_conv.launches = 0
-            ss.sphere_sample_taps.launches = 0
-
         def want(n):
             return {"fused_sphere_conv_grouped": 0, "fused_sphere_conv": 0,
                     "sphere_sample_taps": n}
 
         # ---- call A ---------------------------------------------------
         pipes_a = []
-        zero()
+        _zero_counts()
         with StepTimer() as timer_a:
             t0 = time.perf_counter()
             state_a, out_a = _run_train_cli(
                 [a_yaml, "--max-iters", str(OPTIONS_ITERS)], pipes_a,
                 TrainPipeline)
             wall_a = time.perf_counter() - t0
-        launches_a = counts()["sphere_sample_taps"]
-        if counts() != want(want_a):
-            raise AssertionError(f"call A launches {counts()}, want {want_a}")
+        launches_a = _counts()["sphere_sample_taps"]
+        if _counts() != want(want_a):
+            raise AssertionError(f"call A launches {_counts()}, want {want_a}")
         mgr = CheckpointManager(os.path.join("logs", "options_lmdb", "ckpt"))
         if state_a.step != OPTIONS_ITERS or mgr.steps() != [12]:
             raise AssertionError(f"call A: step {state_a.step}, checkpoints "
@@ -1788,11 +1756,11 @@ def phase_train_options(card_str, plain_step_ms):
         # the image grids, extrapolated ones included, called twice
         g = Generator.from_config(cfg_a)
         grids = loop.make_image_grids(cfg_a, g, seed=0, device="cuda")
-        zero()
+        _zero_counts()
         for _ in range(2):
             out = grids(state_a.params_g_ema, state_a.step)
-        if counts() != want(2 * per_grids):
-            raise AssertionError(f"grids launches {counts()}")
+        if _counts() != want(2 * per_grids):
+            raise AssertionError(f"grids launches {_counts()}")
         ts_in = cfg_a.train_params.ts_input_size // 2
         size = {m: out_size_chain(g.ts.conv_specs_spatial(),
                                   int(round(ts_in * m)) * 2 + 1)[-1]
@@ -1837,17 +1805,17 @@ def phase_train_options(card_str, plain_step_ms):
                                           device="cpu"))
         torch.save({"g_ema": sd}, "baseline.ckpt")
         pipes_b = []
-        zero()
+        _zero_counts()
         with StepTimer() as timer_b:
             t0 = time.perf_counter()
             state_b, out_b = _run_train_cli(
                 [b_yaml, "--max-iters", str(FROZEN_ITERS), "--baseline-ckpt",
                  "baseline.ckpt"], pipes_b, TrainPipeline)
             wall_b = time.perf_counter() - t0
-        launches_b = counts()["sphere_sample_taps"]
-        if counts() != want(want_b) or state_b.step != FROZEN_ITERS or \
+        launches_b = _counts()["sphere_sample_taps"]
+        if _counts() != want(want_b) or state_b.step != FROZEN_ITERS or \
                 "(frozen)" not in out_b:
-            raise AssertionError(f"call B: launches {counts()} (want "
+            raise AssertionError(f"call B: launches {_counts()} (want "
                                  f"{want_b}), step {state_b.step}")
         _finite_log_lines(out_b, (4, 8))
         start = create_train_state(cfg_b, gb, Discriminator.from_config(cfg_b),
@@ -1905,7 +1873,6 @@ class FIDTickRecorder:
     launches inside it and the peak device memory."""
 
     def __enter__(self):
-        from spgan_tpu_torch.ops.kernels import sphere_sample as ss
         from spgan_tpu_torch.train import evals
 
         self.cls, self.ticks = evals.TrainFID, []
@@ -1914,7 +1881,7 @@ class FIDTickRecorder:
         def recorded(obj, params, gen, n_sample=None):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            n0 = ss.sphere_sample_taps.launches
+            n0 = _launches("sphere_sample")
             t0 = time.perf_counter()
             val = orig(obj, params, gen, n_sample)
             torch.cuda.synchronize()
@@ -1922,7 +1889,7 @@ class FIDTickRecorder:
                 "kind": "fid_ext2" if obj.ext2 else "fid", "value": val,
                 "ms": dict(obj.ms),
                 "wall_ms": (time.perf_counter() - t0) * 1e3,
-                "b3": ss.sphere_sample_taps.launches - n0,
+                "b3": _launches("sphere_sample") - n0,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
             return val
 
@@ -2011,8 +1978,6 @@ def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
     from spgan_tpu_torch.data.pipeline import (NativeTrainPipeline,
                                                SyntheticPanoramas)
     from spgan_tpu_torch.evalkit.__main__ import main as eval_main
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
     from spgan_tpu_torch.train.checkpoint import CheckpointManager
 
     t_phase = time.perf_counter()
@@ -2056,9 +2021,7 @@ def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
               f"{want_train} over the {FID_ITERS} training iterations")
 
         os.environ["SPGAN_TPU_INCEPTION"] = "random"
-        sk.fused_sphere_conv_grouped.launches = 0
-        sk.fused_sphere_conv.launches = 0
-        ss.sphere_sample_taps.launches = 0
+        _zero_counts()
         pipes = []
         t0 = time.perf_counter()
         with FIDTickRecorder() as rec:
@@ -2066,10 +2029,7 @@ def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
                                          str(FID_ITERS)], pipes,
                                         NativeTrainPipeline)
         wall = time.perf_counter() - t0
-        launches = {
-            "fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-            "fused_sphere_conv": sk.fused_sphere_conv.launches,
-            "sphere_sample_taps": ss.sphere_sample_taps.launches}
+        launches = _counts()
         kinds = [t["kind"] for t in rec.ticks]
         ticks = {k: [t for t in rec.ticks if t["kind"] == k]
                  for k in ("fid", "fid_ext2")}
@@ -2196,24 +2156,6 @@ def phase_fid(card_str, n_fid_sample=N_FID_SAMPLE):
 
 INVERSION_STEPS = 100
 REPL_RENDERS = 5   # gen, region reroll, global reroll, show, place
-
-
-def _counts():
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
-
-    return {"fused_sphere_conv_grouped": sk.fused_sphere_conv_grouped.launches,
-            "fused_sphere_conv": sk.fused_sphere_conv.launches,
-            "sphere_sample_taps": ss.sphere_sample_taps.launches}
-
-
-def _zero_counts():
-    from spgan_tpu_torch.ops.kernels import sphere_kernel as sk
-    from spgan_tpu_torch.ops.kernels import sphere_sample as ss
-
-    sk.fused_sphere_conv_grouped.launches = 0
-    sk.fused_sphere_conv.launches = 0
-    ss.sphere_sample_taps.launches = 0
 
 
 def _want_b1(n):

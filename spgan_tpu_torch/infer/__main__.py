@@ -41,6 +41,7 @@ from spgan_tpu_torch.infer.interactive import run_interactive
 from spgan_tpu_torch.infer.managers import save_image_batch
 from spgan_tpu_torch.infer.testing_vars import TestingVars, load_record
 from spgan_tpu_torch.parallel.mesh import close, init_distributed
+from spgan_tpu_torch.utils import trace
 from spgan_tpu_torch.utils.flops import generator_flops, pretty
 from spgan_tpu_torch.utils.misc import import_func, manually_seed
 
@@ -91,7 +92,8 @@ def parse_args(argv=None):
                          "torchrun, or a world of one)")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace of one batch "
-                         "(the second when more than one runs) here")
+                         "(the second when more than one runs), with the "
+                         "engine's spgan.* spans, here")
     ap.add_argument("--interactive", action="store_true",
                     help="the editing REPL on stdin (infer/interactive.py; "
                          "batch_size 1)")
@@ -229,6 +231,7 @@ def _run(args, mesh):
                     acts.append(ProfilerActivity.CUDA)
                 prof = profile(activities=acts)
                 prof.__enter__()
+                trace.enable()
             # batch i draws from `key`, or, with task.seeds, from a
             # generator seeded with i (reproducible alone)
             k = (torch.Generator(device=dev).manual_seed(i)
@@ -257,6 +260,7 @@ def _run(args, mesh):
             if i == profile_batch:
                 # every branch above copied the meta image to the host, so
                 # the batch's device work is inside the window
+                trace.disable()
                 prof.__exit__(None, None, None)
                 os.makedirs(args.profile_dir, exist_ok=True)
                 path = os.path.join(args.profile_dir, "infer_trace.json")
@@ -268,6 +272,7 @@ def _run(args, mesh):
     finally:
         if prof is not None:
             # the traced batch raised: close the profiler all the same
+            trace.disable()
             prof.__exit__(None, None, None)
 
     if args.speed_benchmark and root:

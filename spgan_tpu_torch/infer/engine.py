@@ -41,6 +41,7 @@ from spgan_tpu_torch.infer.stitcher import LatticePlan
 from spgan_tpu_torch.models.generator import (Generator, skip_margin,
                                               tables_to)
 from spgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
+from spgan_tpu_torch.utils import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,7 +62,8 @@ def refuse_planar(g: Generator) -> None:
 def render_patches(g: Generator, params, styles, gz, z_src, coords_src,
                    noises_src, z_starts, noise_starts, grids, tables,
                    skip_tables, skip_margins, *, batch: int, win: int,
-                   out_sizes, cdt, ss_maps=()) -> torch.Tensor:
+                   out_sizes, cdt, ss_maps=(),
+                   rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Render len(z_starts) lattice positions x `batch` panoramas in ONE
     folded generator call: the shared body of the engine, its
     lattice-sharded form and the width-sharded halo path
@@ -70,29 +72,45 @@ def render_patches(g: Generator, params, styles, gz, z_src, coords_src,
 
     z_starts (chunk, 2) and noise_starts (per layer (chunk, 2)) are start
     indices into the (padded or halo-extended) z / coords / noise fields;
-    grids, tables and skip_tables hold the chunk's positions in order.
+    grids, tables and skip_tables hold the chunk's positions in order, or,
+    with `rows` (indices), more positions, of which the chunk's are these
+    rows.
     ss_maps: the SS noise maps (B, s, s, 1), the same at every position.
     Returns (chunk, batch, patch, patch, 3) in `cdt`."""
     B, chunk = batch, len(z_starts)
-    zw = torch.stack([z_src[:, r:r + win, c:c + win] for r, c in z_starts])
-    zw = zw.reshape(chunk * B, win, win, -1).to(cdt)
-    cw = torch.stack([coords_src[r:r + win, c:c + win]
-                      for r, c in z_starts])
-    cw = cw.repeat_interleave(B, dim=0)           # (chunk*B, win, win, 3)
-    layer_noises = []
-    for li, sz in enumerate(out_sizes):
-        nw = torch.stack([noises_src[li][:, r:r + sz, c:c + sz]
-                          for r, c in noise_starts[li]])
-        layer_noises.append(nw.reshape(chunk * B, sz, sz, 1).to(cdt))
-    gz_t = gz.repeat(chunk, 1).to(cdt)
-    styles_t = styles.repeat(chunk, 1, 1).to(cdt)
-    # the chunk-major fold order of zw: position q's samples take the B
-    # maps in order
-    ss_noises = [m.repeat(chunk, 1, 1, 1).to(cdt) for m in ss_maps]
-    structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
-                           groups=chunk, noises=ss_noises or None)
-    img = g.ts.synthesize(params["ts"], structure, styles_t, layer_noises,
-                          skip_tables, skip_margins, groups=chunk)
+    with trace.span("spgan.engine.chunk_inputs"):
+        if rows is not None:
+            rows = torch.as_tensor(rows, device=grids[0].device)
+
+            def take(t):
+                return t.index_select(0, rows)
+            grids = [take(gr) for gr in grids]
+            tables = [{k: take(v) for k, v in t.items()} for t in tables]
+            skip_tables = [{k: take(v) for k, v in t.items()}
+                           for t in skip_tables]
+        zw = torch.stack([z_src[:, r:r + win, c:c + win]
+                          for r, c in z_starts])
+        zw = zw.reshape(chunk * B, win, win, -1).to(cdt)
+        cw = torch.stack([coords_src[r:r + win, c:c + win]
+                          for r, c in z_starts])
+        cw = cw.repeat_interleave(B, dim=0)       # (chunk*B, win, win, 3)
+        layer_noises = []
+        for li, sz in enumerate(out_sizes):
+            nw = torch.stack([noises_src[li][:, r:r + sz, c:c + sz]
+                              for r, c in noise_starts[li]])
+            layer_noises.append(nw.reshape(chunk * B, sz, sz, 1).to(cdt))
+        gz_t = gz.repeat(chunk, 1).to(cdt)
+        styles_t = styles.repeat(chunk, 1, 1).to(cdt)
+        # the chunk-major fold order of zw: position q's samples take the
+        # B maps in order
+        ss_noises = [m.repeat(chunk, 1, 1, 1).to(cdt) for m in ss_maps]
+    with trace.span("spgan.generator.ss"):
+        structure = g.ss.apply(params["ss"], gz_t, zw, cw, grids, tables,
+                               groups=chunk, noises=ss_noises or None)
+    with trace.span("spgan.generator.ts"):
+        img = g.ts.synthesize(params["ts"], structure, styles_t,
+                              layer_noises, skip_tables, skip_margins,
+                              groups=chunk)
     patch_sz = out_sizes[-1]
     return img.reshape(chunk, B, patch_sz, patch_sz, 3)
 
@@ -237,20 +255,15 @@ class PanoramaEngine:
         chunk ci; the sharded engine's padded chunks repeat the last).
         Returns (chunk, batch, patch, patch, 3) in the compute dtype."""
         plan = self.plan
-        idx = torch.as_tensor(sel, device=self.device)
-
-        def take(t):
-            return t.index_select(0, idx)
         pos = self._render_idx[sel]
         return render_patches(
             self.g, params, styles, gz, z_pad, coords_pad, noises_pad,
             plan.z_starts[pos], [s[pos] for s in plan.noise_starts],
-            [take(gr) for gr in self._ss_grids],
-            [{k: take(v) for k, v in t.items()} for t in self._ss_tables],
-            [{k: take(v) for k, v in t.items()} for t in self._skip_tables],
+            self._ss_grids, self._ss_tables, self._skip_tables,
             self._skip_margins, batch=self.batch, win=plan.window,
             out_sizes=plan.geom.outfeat_sizes,
-            cdt=_DTYPES[self.compute_dtype], ss_maps=ss_maps)
+            cdt=_DTYPES[self.compute_dtype], ss_maps=ss_maps,
+            rows=sel)
 
     @torch.inference_mode()
     def _render(self, params, gl, z_field, noises, chunks=None
@@ -260,17 +273,19 @@ class PanoramaEngine:
         plan = self.plan
         n_ts = len(plan.noise_sizes)
         ss_maps, noises = noises[n_ts:], noises[:n_ts]
-        if plan.close_loop:
-            win = plan.window
-            z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
-            coords_pad = torch.cat(
-                [self._coords_field, self._coords_field[:, :win]], dim=1)
-            noises_pad = [torch.cat([n, n[:, :, :osz]], dim=2)
-                          for n, osz in zip(noises, plan.geom.outfeat_sizes)]
-        else:
-            z_pad, coords_pad, noises_pad = z_field, self._coords_field, noises
-        styles = self.g.build_styles(params, gl)      # (B, n_latent, D)
-        gz = gl[:, 0]
+        with trace.span("spgan.engine.fields"):
+            if plan.close_loop:
+                win = plan.window
+                z_pad = torch.cat([z_field, z_field[:, :, :win]], dim=2)
+                coords_pad = torch.cat(
+                    [self._coords_field, self._coords_field[:, :win]], dim=1)
+                noises_pad = [torch.cat([n, n[:, :, :osz]], dim=2) for n, osz
+                              in zip(noises, plan.geom.outfeat_sizes)]
+            else:
+                z_pad, coords_pad, noises_pad = (z_field, self._coords_field,
+                                                 noises)
+            styles = self.g.build_styles(params, gl)  # (B, n_latent, D)
+            gz = gl[:, 0]
         if chunks is None:
             chunk = self.patch_chunk
             chunks = [np.arange(ci * chunk, (ci + 1) * chunk)
@@ -283,8 +298,9 @@ class PanoramaEngine:
     def _scatter(self, patches: torch.Tensor,
                  meta: Optional[torch.Tensor] = None,
                  positions: Optional[Sequence[int]] = None) -> torch.Tensor:
-        return scatter_patches(self.plan, patches, self._full_map, meta,
-                               positions)
+        with trace.span("spgan.engine.scatter"):
+            return scatter_patches(self.plan, patches, self._full_map, meta,
+                                   positions)
 
     def make_sharded_generate(self, mesh: Mesh):
         """fn(params, gl, z_field, noises) -> the meta image (B, meta_h,
@@ -306,8 +322,12 @@ class PanoramaEngine:
 
         @torch.inference_mode()
         def generate(params, gl, z_field, noises) -> torch.Tensor:
-            patches = self._render(params, gl, z_field, noises, chunks)
-            return self._scatter(all_gather_rows(patches, mesh)[:n_r])
+            with trace.span("spgan.engine.generate",
+                            trace.count("spgan.engine.batches")):
+                patches = self._render(params, gl, z_field, noises, chunks)
+                with trace.span("spgan.engine.all_gather"):
+                    patches = all_gather_rows(patches, mesh)[:n_r]
+                return self._scatter(patches)
 
         generate.chunks = len(chunks)
         return generate
@@ -315,11 +335,20 @@ class PanoramaEngine:
     # ----------------------------------------------------------------
     def generate(self, params, gen: torch.Generator) -> torch.Tensor:
         """One batch of meta images (B, meta_h, meta_w, 3), float32."""
-        return self.generate_from_fields(params, *self.sample_fields(gen))
+        with trace.span("spgan.engine.generate",
+                        trace.count("spgan.engine.batches")):
+            with trace.span("spgan.engine.fields"):
+                fields = self.sample_fields(gen)
+            return self._generate(params, *fields)
 
-    @torch.inference_mode()
     def generate_from_fields(self, params, gl, z_field, noises
                              ) -> torch.Tensor:
+        with trace.span("spgan.engine.generate",
+                        trace.count("spgan.engine.batches")):
+            return self._generate(params, gl, z_field, noises)
+
+    @torch.inference_mode()
+    def _generate(self, params, gl, z_field, noises) -> torch.Tensor:
         return self._scatter(self._render(params, gl, z_field, noises))
 
     def generate_patches(self, params, gl, z_field, noises) -> torch.Tensor:

@@ -32,6 +32,7 @@ from spgan_tpu_torch.infer.stitcher import (LatticePlan,
 from spgan_tpu_torch.infer.testing_vars import TestingVars
 from spgan_tpu_torch.models.generator import Generator
 from spgan_tpu_torch.parallel.mesh import Mesh, make_mesh
+from spgan_tpu_torch.utils import trace
 from spgan_tpu_torch.utils.png import write_png
 
 ENGINES = ("folded", "sharded", "halo")
@@ -46,8 +47,9 @@ def halo_seed(gen: torch.Generator) -> int:
 
 def to_uint8(images: np.ndarray) -> np.ndarray:
     """(..., 3) in [-1, 1] -> uint8, quantized as the JAX package does."""
-    arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
-    return (arr * 255.0 + 0.5).astype(np.uint8)
+    with trace.span("spgan.engine.to_uint8"):
+        arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
+        return (arr * 255.0 + 0.5).astype(np.uint8)
 
 
 def save_image_batch(images: np.ndarray, save_root: str, start_id: int,

@@ -11,8 +11,9 @@ the fly from two input rows.  Compute-bound on an H100 at the engine's
 shapes (see the source's note).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the call raises.  Each wrapper counts its kernel launches in a
-plain integer attribute, ``<wrapper>.launches``.
+kernel, or the call raises.  Each wrapper counts its kernel launches in
+the tracer's counters (utils/trace.py): ``spgan.sphere_conv.grouped.launches``
+and ``spgan.sphere_conv.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import functools
 import torch
 
 from spgan_tpu_torch.ops.kernels.taps import TABLE_DTYPES, sample_tap
+from spgan_tpu_torch.utils import trace
 
 
 def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
@@ -118,7 +120,7 @@ def fused_sphere_conv_grouped(x: torch.Tensor, tables: dict, w9: torch.Tensor,
     if x.device.type == "cpu":
         return fused_sphere_conv_plain(x, tables, w9, groups, margin)
     out = _launch(x, tables, w9, groups, margin)
-    fused_sphere_conv_grouped.launches += 1
+    trace.count("spgan.sphere_conv.grouped.launches")
     return out
 
 
@@ -129,9 +131,5 @@ def fused_sphere_conv(x: torch.Tensor, tables: dict, w9: torch.Tensor,
     if x.device.type == "cpu":
         return fused_sphere_conv_plain(x, tables, w9, x.shape[0], margin)
     out = _launch(x, tables, w9, x.shape[0], margin)
-    fused_sphere_conv.launches += 1
+    trace.count("spgan.sphere_conv.launches")
     return out
-
-
-fused_sphere_conv_grouped.launches = 0
-fused_sphere_conv.launches = 0

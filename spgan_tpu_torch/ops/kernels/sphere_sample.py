@@ -13,8 +13,8 @@ the input rows of each tap row of the 3x3 kernel in shared memory once and
 streams the output with 16-byte stores (see the source's note).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the call raises.  The wrapper counts its kernel launches in a
-plain integer attribute, ``sphere_sample_taps.launches``.
+kernel, or the call raises.  The wrapper counts its kernel launches in the
+tracer's counter ``spgan.sphere_sample.launches`` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import functools
 import torch
 
 from spgan_tpu_torch.ops.kernels.taps import TABLE_DTYPES, sample_tap
+from spgan_tpu_torch.utils import trace
 
 
 def sphere_sample_taps_plain(x: torch.Tensor, tables: dict,
@@ -122,11 +123,8 @@ def sphere_sample_taps(x: torch.Tensor, tables: dict,
     if x.device.type == "cpu":
         return sphere_sample_taps_plain(x, tables, margin)
     out = _launch(x, tables, margin)
-    sphere_sample_taps.launches += 1
+    trace.count("spgan.sphere_sample.launches")
     return out
-
-
-sphere_sample_taps.launches = 0
 
 
 def st_sample_taps(z: torch.Tensor, tables: dict) -> torch.Tensor:

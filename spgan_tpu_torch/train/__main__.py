@@ -52,7 +52,8 @@ def main(argv=None):
                     help="this process's rank")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace of the "
-                         "profiled iterations here")
+                         "profiled iterations, with the step's spgan.* "
+                         "spans, here")
     ap.add_argument("--profile-start", type=int, default=3,
                     help="first traced iteration, counted from the loop's "
                          "start (default 3: after the warm-up)")

@@ -67,6 +67,7 @@ from spgan_tpu_torch.train.state import TrainState, create_train_state
 from spgan_tpu_torch.train.step import (_DTYPES, make_train_step,
                                         refuse_baseline)
 from spgan_tpu_torch.tree import tree_leaves, tree_map
+from spgan_tpu_torch.utils import trace
 from spgan_tpu_torch.utils.misc import backup_files, import_func
 
 # tensorboard event files are closed and reopened every this many
@@ -122,9 +123,7 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
     coordinate grids; style diversity one fixed local latent under min(n,
     8) fresh global ones; structure diversity one fixed global latent
     under fresh local ones.  The crops, noises and fresh latents of
-    iteration `it` come from (seed + 1, it).  After a call, grids.ms holds
-    each grid's ms on the host clock (its forward and the copy to the
-    host)."""
+    iteration `it` come from (seed + 1, it)."""
     tp = cfg.train_params
     dev = resolve(device)
     cdt = _DTYPES[tp.compute_dtype]
@@ -189,14 +188,8 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
             ("samples/structure_diversity", 8, lambda: forward(
                 params_ema, vis_gl[:1].repeat(n_div, 1, 1),
                 sampler.sample_local(gen, n_div), gen))]
-        out, grids.ms = {}, {}
-        for tag, ncol, run in jobs:
-            t0 = time.perf_counter()
-            out[tag] = _to_grid(run(), ncol)
-            grids.ms[tag] = (time.perf_counter() - t0) * 1e3
-        return out
+        return {tag: _to_grid(run(), ncol) for tag, ncol, run in jobs}
 
-    grids.ms = {}
     return grids
 
 
@@ -320,8 +313,10 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
     InfinityGAN baseline checkpoint (load_baseline) before resuming.
     profile_dir: a torch.profiler Chrome trace of iterations
     [profile_start, profile_start + profile_iters), counted from the
-    loop's start, is written there (with steps_per_call K the window
-    opens and closes at the first call boundary at or past its ends).
+    loop's start, is written there with the training step's spans
+    (utils/trace.py: spgan.train.*) in its host timeline (with
+    steps_per_call K the window opens and closes at the first call
+    boundary at or past its ends).
 
     With compute_dtype float32, TF32 is turned off for cuDNN convolutions
     and cuBLAS matmuls (PyTorch enables it for cuDNN by default), so the
@@ -411,6 +406,7 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
                     acts.append(ProfilerActivity.CUDA)
                 prof = profile(activities=acts)
                 prof.__enter__()
+                trace.enable()
                 prof_start = it
             k = min(k_steps, total - it)
             for j in range(k):
@@ -430,6 +426,7 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
             it += k
             if prof is not None and it - prof_start >= profile_iters:
                 sync()
+                trace.disable()
                 prof.__exit__(None, None, None)
                 done, prof = prof, None
                 os.makedirs(profile_dir, exist_ok=True)
@@ -506,6 +503,7 @@ def train(cfg: Config, debug: bool = False, seed: int = 0,
         raise
     finally:
         if prof is not None:  # the loop left inside the window
+            trace.disable()
             prof.__exit__(None, None, None)
             print(f" [!] Profiler window cut at iteration {it}; no trace "
                   "written")

@@ -49,6 +49,7 @@ from spgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
 from spgan_tpu_torch.train.state import (TrainState, ema_update, global_norm,
                                          lr_schedule_factor, make_optimizers)
 from spgan_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from spgan_tpu_torch.utils import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -301,7 +302,8 @@ class TrainStep:
     def _reduce(self, grads: List[Optional[torch.Tensor]]):
         """The phase's gradients averaged over the ranks, in place."""
         if self.multi:
-            all_reduce_mean_(grads, self.mesh)
+            with trace.span("spgan.train.all_reduce"):
+                all_reduce_mean_(grads, self.mesh)
         return grads
 
     # ----------------------------------------------------------------- step
@@ -309,10 +311,16 @@ class TrainStep:
                  real_ac: torch.Tensor, gen: torch.Generator,
                  do_r1: bool, do_ppl: bool
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        trace.count("spgan.train.steps")
+        with trace.span("spgan.train.step", state.step):
+            return self._step(state, real_patch, real_ac, gen, do_r1, do_ppl)
+
+    def _step(self, state, real_patch, real_ac, gen, do_r1, do_ppl):
         tp = self.cfg.train_params
-        dr = self.draw(gen, do_ppl)
-        if self.multi:
-            dr = shard_draws(dr, self.mesh)
+        with trace.span("spgan.train.draw"):
+            dr = self.draw(gen, do_ppl)
+            if self.multi:
+                dr = shard_draws(dr, self.mesh)
         real = real_patch.to(self.cdt)
         zero = torch.zeros((), device=real.device)
         # the update rules of the JAX step: the lr factor of this
@@ -323,10 +331,11 @@ class TrainStep:
                             if tp.freeze else None)}
         upd_g = {"factor": upd_d["factor"], "frozen": self.freeze_g_mask}
 
-        grads, metrics = self.d_grads(state.params_g, state.params_d, real,
-                                      real_ac, dr.d)
+        with trace.span("spgan.train.d"):
+            grads, metrics = self.d_grads(state.params_g, state.params_d,
+                                          real, real_ac, dr.d)
         self._reduce(grads)
-        with torch.no_grad():
+        with trace.span("spgan.train.update"), torch.no_grad():
             metrics["grad_norm/d"] = global_norm(grads)
             params_d, opt_d = self.opt_d.step(
                 state.params_d, tree_unflatten(state.params_d, grads),
@@ -334,9 +343,10 @@ class TrainStep:
 
         metrics["r1"] = zero
         if do_r1 and tp.r1 != 0:
-            grads, metrics["r1"] = self.r1_grads(params_d, real, real_ac)
+            with trace.span("spgan.train.r1"):
+                grads, metrics["r1"] = self.r1_grads(params_d, real, real_ac)
             self._reduce(grads)
-            with torch.no_grad():
+            with trace.span("spgan.train.update"), torch.no_grad():
                 # torch-Adam's graph membership in the R1 phase; SGD has
                 # no per-leaf state, so it takes no mask
                 active = (None if tp.optimizer == "sgd"
@@ -345,10 +355,11 @@ class TrainStep:
                     params_d, tree_unflatten(params_d, grads), opt_d,
                     active=active, **upd_d)
 
-        grads, g_metrics = self.g_grads(state.params_g, params_d, dr.g)
+        with trace.span("spgan.train.g"):
+            grads, g_metrics = self.g_grads(state.params_g, params_d, dr.g)
         self._reduce(grads)
         metrics.update(g_metrics)
-        with torch.no_grad():
+        with trace.span("spgan.train.update"), torch.no_grad():
             gtree = tree_unflatten(state.params_g, grads)
             metrics["grad_norm/g"] = global_norm(gtree)
             metrics["grad_norm/g_ss"] = global_norm(gtree["ss"])
@@ -359,10 +370,11 @@ class TrainStep:
         mean_path = state.mean_path_length
         metrics["path"] = metrics["path_lengths"] = zero
         if do_ppl and tp.path_regularize != 0:
-            grads, metrics["path"], mean_path, metrics["path_lengths"] = \
-                self.ppl_grads(params_g, dr, mean_path)
+            with trace.span("spgan.train.ppl"):
+                grads, metrics["path"], mean_path, metrics["path_lengths"] = \
+                    self.ppl_grads(params_g, dr, mean_path)
             self._reduce(grads)
-            with torch.no_grad():
+            with trace.span("spgan.train.update"), torch.no_grad():
                 params_g, opt_g = self.opt_g.step(
                     params_g, tree_unflatten(params_g, grads), opt_g,
                     **upd_g)
@@ -371,11 +383,12 @@ class TrainStep:
             # norms are of the reduced gradients already)
             keys = [k for k in metrics if not k.startswith("grad_norm")]
             vals = torch.stack([metrics[k].float() for k in keys])
-            all_reduce_mean_([vals], self.mesh)
+            with trace.span("spgan.train.all_reduce"):
+                all_reduce_mean_([vals], self.mesh)
             metrics.update(zip(keys, vals.unbind()))
         metrics["mean_path_length"] = mean_path
 
-        with torch.no_grad():
+        with trace.span("spgan.train.ema"), torch.no_grad():
             params_g_ema = ema_update(state.params_g_ema, params_g)
         return TrainState(step=state.step + 1, params_g=params_g,
                           params_d=params_d, params_g_ema=params_g_ema,

@@ -23,6 +23,7 @@ from spgan_tpu.utils.flops import generator_flops as jax_flops
 from spgan_tpu.utils.flops import pretty as jax_pretty
 from spgan_tpu_torch.infer.__main__ import main
 from spgan_tpu_torch.infer.testing_vars import TestingVars
+from spgan_tpu_torch.utils import trace as tracer
 from test_cli_surface import MODEL_YAML, _run_cli
 
 
@@ -240,5 +241,10 @@ def test_cli_profile_dir_writes_a_chrome_trace(narrow, tmp_path, monkeypatch):
     with open(tmp_path / "prof" / "infer_trace.json") as f:
         trace = json.load(f)
     assert trace["traceEvents"]
+    # the window carries the engine's spans, and the tracer is off after it
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"spgan.engine.generate", "spgan.generator.ts",
+            "spgan.engine.to_uint8"} <= names
+    assert not tracer._on
     assert _pngs("o") == ["000000.png", "000001.png", "000002.png",
                           "000003.png"]

@@ -21,9 +21,15 @@ import pytest
 import torch
 
 from spgan_tpu_torch.ops.kernels import sphere_kernel as tk
+from spgan_tpu_torch.utils import trace
 
 _TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
         torch.bfloat16: dict(atol=1e-3, rtol=2 ** -7)}
+
+
+def _launches(kernel: str) -> int:
+    """The wrapper's launch counter (utils/trace.py)."""
+    return trace.counters().get(f"spgan.{kernel}.launches", 0)
 
 
 def _random_group_tables(rng, G, H, K2):
@@ -52,12 +58,12 @@ def test_kernel_matches_plain_on_card(dtype):
     tg = {k: v.cuda() for k, v in _random_group_tables(rng, G, H, 9).items()}
     tp = {k: v.repeat_interleave(Bg, dim=0).contiguous() for k, v in tg.items()}
     ref = tk.fused_sphere_conv_plain(x, tg, w9, G).cpu()
-    n_g = tk.fused_sphere_conv_grouped.launches
-    n_p = tk.fused_sphere_conv.launches
+    n_g = _launches("sphere_conv.grouped")
+    n_p = _launches("sphere_conv")
     got_g = tk.fused_sphere_conv_grouped(x, tg, w9, groups=G).cpu()
     got_p = tk.fused_sphere_conv(x, tp, w9).cpu()
-    assert tk.fused_sphere_conv_grouped.launches == n_g + 1
-    assert tk.fused_sphere_conv.launches == n_p + 1
+    assert _launches("sphere_conv.grouped") == n_g + 1
+    assert _launches("sphere_conv") == n_p + 1
     for got in (got_g, got_p):
         assert got.dtype == dtype
         np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
@@ -74,7 +80,7 @@ def test_kernel_rejects_bad_operands_on_card():
     x = torch.randn(2, 5, 7, 16, device="cuda")
     w9 = torch.randn(9, 16, 8, device="cuda")
     tg = {k: v.cuda() for k, v in _random_group_tables(rng, 2, 5, 9).items()}
-    n = tk.fused_sphere_conv.launches
+    n = _launches("sphere_conv")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tk.fused_sphere_conv(x.half(), tg, w9.half())
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -88,7 +94,7 @@ def test_kernel_rejects_bad_operands_on_card():
     with pytest.raises(ValueError, match="W >= 4"):
         tk.fused_sphere_conv(x[:, :, :3].contiguous().bfloat16(), tg,
                              w9.bfloat16())
-    assert tk.fused_sphere_conv.launches == n
+    assert _launches("sphere_conv") == n
 
 
 def _check_both_entry_points(x, tg, w9, G):
@@ -96,12 +102,12 @@ def _check_both_entry_points(x, tg, w9, G):
     Bg = x.shape[0] // G
     tp = {k: v.repeat_interleave(Bg, dim=0).contiguous() for k, v in tg.items()}
     ref = tk.fused_sphere_conv_plain(x, tg, w9, G).cpu()
-    n_g = tk.fused_sphere_conv_grouped.launches
-    n_p = tk.fused_sphere_conv.launches
+    n_g = _launches("sphere_conv.grouped")
+    n_p = _launches("sphere_conv")
     got_g = tk.fused_sphere_conv_grouped(x, tg, w9, groups=G).cpu()
     got_p = tk.fused_sphere_conv(x, tp, w9).cpu()
-    assert tk.fused_sphere_conv_grouped.launches == n_g + 1
-    assert tk.fused_sphere_conv.launches == n_p + 1
+    assert _launches("sphere_conv.grouped") == n_g + 1
+    assert _launches("sphere_conv") == n_p + 1
     for got in (got_g, got_p):
         assert got.dtype == x.dtype and got.shape == ref.shape
         np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
