@@ -16,15 +16,22 @@ Phases (any failure exits non-zero; nothing is caught):
              library times, TFLOP/s and share of the bound, and cuDNN's
              dense 3x3 conv of the same FLOPs as a yardstick; for the tap
              sampler also its device time (torch.profiler), GB/s, the
-             distinct input rows per output row and its row slots
+             distinct input rows per output row and its row slots;
+             upfirdn2d at the cells' blur shapes (UPFIRDN_SHAPES), float32
+             within 1e-5 and bf16 within 1 ulp of its plain version, its
+             device time beside its byte bound, the plain version's and
+             one grouped cuDNN conv's, and an R1-style double backward
+             through D's first blur on the kernel and on the plain
+             version's autograd
   3. parity  a tiny close-loop engine on cuda (kernel) vs the same engine
              on cpu (plain version), same weights and fields, float32
   3b. infer-parity  the same for a tiny planar (infinite) engine
   4. engine  the shipped model at full width (Config() defaults, random
              weights from a fixed seed): close-loop 384x768, batch 16,
              bf16, patch_chunk 4; one warm-up generate, then timed ones;
-             the grouped kernel must launch 48 times per generate; one
-             traced generate, with the sphere conv's device time
+             the grouped kernel must launch 48 times per generate and
+             upfirdn2d 84; one traced generate, with the sphere conv's
+             device time
   4b. cli   the inference CLI (python -m spgan_tpu_torch.infer), called
              in-process at full width with random weights: close-loop
              384x768 bf16 (configs/model/spgan_run5k_bf16.yaml), 16
@@ -45,7 +52,9 @@ Phases (any failure exits non-zero; nothing is caught):
   7. train   the shipped training step at full width (Config(): batch 16,
              float32, synthetic data): one warm-up step, timed plain steps
              and one R1+PPL step; the tap sampler must launch 8 times per
-             plain step and 12 times on the PPL step; one traced step
+             plain step and 12 times on the PPL step, upfirdn2d 81 and
+             147; one traced step of each, the R1+PPL one with fewer
+             than 256 convolutions (no per-channel loop)
   8. train-cli  the training CLI (python -m spgan_tpu_torch.train), called
              in-process at full width on configs/model/spgan_run5k.yaml
              (batch 16, float32, source spr) with an .spr of 64 synthetic
@@ -257,7 +266,7 @@ def phase_build():
 
     from spgan_tpu_torch.ops.kernels import build
 
-    names = sorted(p.stem for p in build.SRC_DIR.glob("*.cu"))
+    names = build.sources()
     t0 = time.perf_counter()
     logs = build.build(names)
     dt = time.perf_counter() - t0
@@ -475,6 +484,10 @@ def phase_engine(card_str):
             or launches["sphere_sample_taps"]):
         raise AssertionError(f"kernel launches per generate {launches} / "
                              f"{TIMED_GENERATES} (want 48 grouped)")
+    blurs = _launches("upfirdn") / TIMED_GENERATES
+    if blurs != UPFIRDN_PER_GENERATE:
+        raise AssertionError(f"upfirdn2d launches per generate {blurs} "
+                             f"(want {UPFIRDN_PER_GENERATE})")
     panos = TIMED_GENERATES * cfg.task.batch_size / dt
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[engine] {card_str}: close-loop 384x768 batch "
@@ -482,7 +495,8 @@ def phase_engine(card_str):
           f"({dt / TIMED_GENERATES * 1e3:.1f} ms per generate; each "
           f"{', '.join(f'{t:.1f}' for t in per_ms)} ms), peak memory "
           f"{peak:.2f} GiB, meta {tuple(meta.shape)} finite, "
-          f"{per_gen:.0f} grouped-kernel launches per generate")
+          f"{per_gen:.0f} grouped-kernel launches per generate, "
+          f"{blurs:.0f} upfirdn2d launches per generate")
     busy_ms, by_name = trace(lambda: eng.generate(params, gen), "generate")
     untraced_ms = float(np.median(per_ms))
     print(f"[trace] device busy {busy_ms:.1f} ms of the untraced median "
@@ -661,10 +675,11 @@ def phase_cli(card_str):
     return out
 
 
-def trace(run, what, top=12):
+def trace(run, what, top=12, ops=None):
     """Device time by kernel over one call of `run` (torch.profiler), and
     the device's busy share of its wall time under the profiler.  Returns
-    the device-busy milliseconds and the milliseconds by kernel name."""
+    the device-busy milliseconds and the milliseconds by kernel name; the
+    count of each host operator goes into `ops` when it is given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -675,6 +690,9 @@ def trace(run, what, top=12):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    if ops is not None:
+        ops.update({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU})
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"[trace] one {what} under the profiler: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
@@ -747,7 +765,7 @@ def training_crops(B, H, seed):
     return tables, sphere_patch_grid_batch(cp, H, H)
 
 
-def device_ms(run, name, iters=20, tries=6):
+def device_ms(run, name, iters=20, tries=6, least=None):
     """Mean device time (torch.profiler, self device time) of the kernels
     whose name holds `name`, over `iters` back-to-back calls of `run`; each
     call must launch one.  Returns (ms, traces taken).  A trace, each with
@@ -755,7 +773,8 @@ def device_ms(run, name, iters=20, tries=6):
     of 20, or none at all in two traces running), cause not found: a short
     trace is then taken again, up to `tries` times, and the count of
     traces goes into the kernels line; more launches than calls fail at
-    once."""
+    once.  `least`: the fewest launches a trace may see and still count
+    (default all of them); the mean is over the launches seen."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -770,7 +789,7 @@ def device_ms(run, name, iters=20, tries=6):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and name in e.key]
         count = sum(e.count for e in ev)
-        if count == iters:
+        if (iters if least is None else least) <= count <= iters:
             return (sum(e.self_device_time_total for e in ev) / count / 1e3,
                     attempt)
         print(f"[kernels] {name}: trace {attempt} saw {count} launches of "
@@ -868,6 +887,148 @@ def phase_sample_kernel():
           f" GB/s, {100 * tot['bound_ms'] / tot['device_ms']:.1f}% of the "
           f"{tot['bound_ms']:.4f} ms bound), back to back {tot['ms']:.4f} ms, "
           f"library {tot['library_ms']:.4f} ms")
+    return res
+
+
+# upfirdn2d at the cells' shapes: (what, B, H, W, C, stencil, gain, up,
+# down, pads (py0, py1, px0, px1), dtype).  The planar TS's largest blur
+# (chunk of 4 x 16 patches, 105^2 x 512 in, the stencil of the TS's
+# [1, 2, 1] times 4), the training TS's largest blur and its adjoint, D's
+# first downsampling blur (16 x 101^2 x 256, [1, 3, 3, 1], pad 2) and its
+# skip's (pad 1), and render-360's largest blur in bf16.
+UPFIRDN_SHAPES = (
+    ("planar TS blur", 64, 105, 105, 512, (1.0, 2.0, 1.0), 4.0, 1, 1,
+     (0, 0, 0, 0), torch.float32),
+    ("training TS blur", 16, 105, 105, 512, (1.0, 2.0, 1.0), 4.0, 1, 1,
+     (0, 0, 0, 0), torch.float32),
+    ("training TS blur adjoint", 16, 103, 103, 512, (1.0, 2.0, 1.0), 4.0, 1,
+     1, (2, 2, 2, 2), torch.float32),
+    ("D first blur", 16, 101, 101, 256, (1.0, 3.0, 3.0, 1.0), 1.0, 1, 1,
+     (2, 2, 2, 2), torch.float32),
+    ("D first skip blur", 16, 101, 101, 256, (1.0, 3.0, 3.0, 1.0), 1.0, 1,
+     1, (1, 1, 1, 1), torch.float32),
+    ("render-360 TS blur", 64, 105, 105, 512, (1.0, 2.0, 1.0), 4.0, 1, 1,
+     (0, 0, 0, 0), torch.bfloat16),
+)
+# kernel launches of the Blur/Upsample/Downsample calls: 7 a TS forward (4
+# blurs after the upsampling convs, 3 ToRGB skip upsamples), 10 a D forward
+# (2 a ResBlock); a plain training step 47 (D phase) + 34 (G phase), the
+# R1 phase 40, the PPL phase 26 (counted by the Function's calls on the
+# CPU at the tiny widths; the count does not depend on widths)
+UPFIRDN_PER_GENERATE = 7 * 12   # close loop: 12 chunks of 4 positions
+UPFIRDN_PER_PLAIN_STEP = 81
+UPFIRDN_PER_REG_STEP = 81 + 40 + 26
+
+
+def _bf16_ulps(got, ref):
+    """Largest |got - ref| in units in the last place of bf16 (of the
+    larger magnitude)."""
+    got, ref = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), ref.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), e.int() - 8)
+    return float(((got - ref).abs() / ulp).max())
+
+
+def phase_upfirdn():
+    """upfirdn2d (csrc/upfirdn2d.cu) at the cells' shapes: against its plain
+    version (zero insertion, F.pad and a depthwise cuDNN conv, TF32 off),
+    its time back to back and on the device beside its byte bound, the
+    plain version's, and one grouped F.conv2d's (the library call the port
+    made before, a yardstick); then an R1-style double backward through D's
+    first blur on the kernel and on the plain version's autograd."""
+    import torch.nn.functional as F
+
+    from spgan_tpu_torch.ops.kernels import upfirdn as ku
+    from spgan_tpu_torch.ops.upfirdn import make_kernel
+
+    rng = np.random.RandomState(3)
+    res = {}
+    for what, B, H, W, C, kernel, gain, up, down, pad, dtype in UPFIRDN_SHAPES:
+        k = make_kernel(np.asarray(kernel, np.float32)) * gain
+        taps, kh = tuple(k.astype(np.float32).ravel().tolist()), k.shape[0]
+        x = torch.as_tensor(rng.randn(B, H, W, C).astype(np.float32)).cuda()
+        x = x.to(dtype)
+        ref = ku.upfirdn2d_plain(x.float(), taps, kh, up, down, pad)
+        n0 = _launches("upfirdn")
+        got = ku.upfirdn2d(x, taps, kh, up, down, pad)
+        torch.cuda.synchronize()
+        if _launches("upfirdn") != n0 + 1:
+            raise AssertionError(f"upfirdn2d {what}: "
+                                 f"{_launches('upfirdn') - n0} launches")
+        if dtype == torch.float32:
+            err = check_close(f"upfirdn2d {what}", got, ref, 1e-5, 0.0)
+            err_s = f"max_abs_err {err:.3e} (1e-5)"
+        else:
+            err = _bf16_ulps(got, ref.to(dtype))
+            if err > 1.0:
+                raise AssertionError(f"upfirdn2d {what}: {err} bf16 ulps")
+            err_s = f"max {err:.2f} bf16 ulp (1)"
+        w = torch.as_tensor(np.flip(k, (0, 1)).copy()).to(
+            device="cuda", dtype=dtype)[None, None].expand(C, 1, kh, kh)
+        w = w.contiguous()
+
+        def library():
+            # one grouped conv of the same stencil on the NCHW view (the
+            # port's call before the kernel, for up 1 and even pads)
+            return F.conv2d(x.permute(0, 3, 1, 2), w, padding=pad[0],
+                            groups=C).permute(0, 2, 3, 1)
+
+        r = res[what] = {"err": err, "dtype": str(dtype)[6:]}
+        r["ms"] = time_ms(lambda: ku.upfirdn2d(x, taps, kh, up, down, pad), 20)
+        # the bf16 shape's traces saw 18 or 19 of 20 launches every time
+        # on the H100, while the counter saw 20 (the profiler's loss, as
+        # device_ms says): the mean over those a trace saw
+        r["device_ms"], r["traces"] = device_ms(
+            lambda: ku.upfirdn2d(x, taps, kh, up, down, pad),
+            "upfirdn2d_nhwc_kernel", least=10)
+        r["plain_ms"] = time_ms(
+            lambda: ku.upfirdn2d_plain(x, taps, kh, up, down, pad), 5)
+        r["library_ms"] = time_ms(library, 5)
+        # each input element read once, each output element written once
+        r["bytes"] = nbytes = (x.numel() + got.numel()) * x.element_size()
+        flops = 2.0 * kh * kh * got.numel()
+        t_bytes = nbytes / H100_BYTES_PER_S
+        r["bound_ms"] = max(t_bytes, flops / H100_F32_FLOPS) * 1e3
+        r["bound_by"] = ("bytes" if t_bytes >= flops / H100_F32_FLOPS
+                         else "operations")
+        print(f"[kernels] upfirdn2d {what} {tuple(x.shape)} {r['dtype']} "
+              f"up {up} down {down} pad {pad}: {err_s}; device "
+              f"{r['device_ms']:.4f} ms ({nbytes / r['device_ms'] / 1e6:.0f}"
+              f" GB/s, {100 * r['bound_ms'] / r['device_ms']:.1f}% of the "
+              f"{r['bound_ms']:.4f} ms bound, {r['bound_by']}), back to back "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"grouped conv {r['library_ms']:.4f} ms")
+
+    # R1 through D's first blur: the gradient of a nonlinear function of
+    # the blur's output w.r.t. its input, with create_graph, then backward
+    what, B, H, W, C, kernel, gain, up, down, pad, dtype = UPFIRDN_SHAPES[3]
+    k = make_kernel(np.asarray(kernel, np.float32))
+    taps, kh = tuple(k.ravel().tolist()), k.shape[0]
+    x0 = torch.as_tensor(rng.randn(B, H, W, C).astype(np.float32)).cuda()
+    w0 = torch.as_tensor(rng.randn(C).astype(np.float32)).cuda()
+
+    def r1(fn):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        y = torch.tanh(fn(x * w, taps, kh, up, down, pad))
+        g, = torch.autograd.grad((y * y).sum(), x, create_graph=True)
+        (g * g).sum().backward()
+        return g.detach(), w.grad
+
+    got, want = r1(ku.upfirdn2d), r1(ku.upfirdn2d_plain)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("grad", "second grad")):
+        scale = max(float(b.abs().max()), 1.0)
+        if float((a - b).abs().max()) > 1e-5 * scale:
+            raise AssertionError(f"upfirdn2d R1 {name}: kernel vs plain "
+                                 f"{float((a - b).abs().max()):.3e} "
+                                 f"(scale {scale:.3e})")
+    kern_ms = time_ms(lambda: r1(ku.upfirdn2d), 5)
+    plain_ms = time_ms(lambda: r1(ku.upfirdn2d_plain), 3, warmup=1)
+    res["r1"] = {"ms": kern_ms, "plain_ms": plain_ms}
+    print(f"[kernels] upfirdn2d R1-style double backward through {what} "
+          f"{tuple(x0.shape)}: kernel {kern_ms:.3f} ms, plain (cuDNN, one "
+          f"conv a channel in the double backward) {plain_ms:.3f} ms")
     return res
 
 
@@ -1007,15 +1168,16 @@ def phase_train(card_str):
     s0 = state
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    per_ms, per_launch = [], []
+    per_ms, per_launch, per_blur = [], [], []
     for i in range(TIMED_TRAIN_STEPS + 1):
         reg = i == TIMED_TRAIN_STEPS
-        n0 = _launches("sphere_sample")
+        n0, b0 = _launches("sphere_sample"), _launches("upfirdn")
         t0 = time.perf_counter()
         state, m = run(1 + i, reg)
         torch.cuda.synchronize()
         per_ms.append((time.perf_counter() - t0) * 1e3)
         per_launch.append(_launches("sphere_sample") - n0)
+        per_blur.append(_launches("upfirdn") - b0)
         check(m, f"step {i}")
     launches = _counts()
     want = [2 * g.ss.n_layers] * TIMED_TRAIN_STEPS + [3 * g.ss.n_layers]
@@ -1023,6 +1185,10 @@ def phase_train(card_str):
             or launches["fused_sphere_conv"]:
         raise AssertionError(f"tap-sampler launches per step {per_launch} "
                              f"(want {want}), all {launches}")
+    want = [UPFIRDN_PER_PLAIN_STEP] * TIMED_TRAIN_STEPS + [UPFIRDN_PER_REG_STEP]
+    if per_blur != want:
+        raise AssertionError(f"upfirdn2d launches per step {per_blur} "
+                             f"(want {want})")
 
     def delta(a, b):
         return max(float((x - y).abs().max())
@@ -1039,14 +1205,30 @@ def phase_train(card_str):
           f"{tp.compute_dtype}: plain step {np.mean(plain):.1f} ms "
           f"(each {', '.join(f'{t:.1f}' for t in plain)}), R1+PPL step "
           f"{per_ms[-1]:.1f} ms, peak memory {peak:.2f} GiB; tap-sampler "
-          f"launches per step {per_launch}; max |d| over the 4 steps: G "
+          f"launches per step {per_launch}, upfirdn2d {per_blur}; max |d| "
+          f"over the 4 steps: G "
           f"{d_g:.3e}, D {d_d:.3e}, EMA {d_ema:.3e}")
     print(f"[train] last metrics: "
           f"{ {k: round(float(v), 4) for k, v in m.items()} }")
     for i, (reg, what, untraced_ms) in enumerate((
             (False, "plain train step", float(np.median(plain))),
             (True, "R1+PPL train step", per_ms[-1]))):
-        busy_ms, _ = trace(lambda: run(TIMED_TRAIN_STEPS + 2 + i, reg), what)
+        ops = {}
+        busy_ms, _ = trace(lambda: run(TIMED_TRAIN_STEPS + 2 + i, reg), what,
+                           ops=ops)
+        # R1 and PPL differentiate the blurs twice on upfirdn2d's Function,
+        # never by PyTorch's double backward of a grouped conv, which runs
+        # one convolution a channel: one such loop over the narrowest of
+        # the blurs' 256 or 512 channels would add 256 alone.  The R1+PPL
+        # step's other convolutions are 186 on the H100, the plain step's
+        # 91.
+        convs = ops.get("aten::convolution", 0)
+        print(f"[trace] {what}: {convs} aten::convolution, "
+              f"{ops.get('aten::_convolution_double_backward', 0)} "
+              f"aten::_convolution_double_backward (of the ungrouped convs)")
+        if convs >= 256:
+            raise AssertionError(f"traced {what}: {convs} convolutions, a "
+                                 f"per-channel loop")
         print(f"[trace] device busy {busy_ms:.1f} ms of the untraced {what} "
               f"{untraced_ms:.1f} ms: idle share "
               f"{100 * (1 - busy_ms / untraced_ms):.1f}%")
@@ -1758,7 +1940,9 @@ def phase_train_options(card_str, plain_step_ms):
         grids = loop.make_image_grids(cfg_a, g, seed=0, device="cuda")
         _zero_counts()
         for _ in range(2):
+            t0 = time.perf_counter()
             out = grids(state_a.params_g_ema, state_a.step)
+            grids_ms = (time.perf_counter() - t0) * 1e3
         if _counts() != want(2 * per_grids):
             raise AssertionError(f"grids launches {_counts()}")
         ts_in = cfg_a.train_params.ts_input_size // 2
@@ -1775,9 +1959,8 @@ def phase_train_options(card_str, plain_step_ms):
         if shapes != want_shapes or not all(v.std() > 0
                                             for v in out.values()):
             raise AssertionError(f"grids {shapes}, want {want_shapes}")
-        print(f"[train-options] {card_str}: image grids {shapes}; ms of each "
-              f"(second call, forward + copy to the host) "
-              f"{ {k: round(v, 1) for k, v in grids.ms.items()} }")
+        print(f"[train-options] {card_str}: image grids {shapes}; the "
+              f"second call (forwards + copies to the host) {grids_ms:.1f} ms")
 
         # the inference CLI from call A's checkpoint directory, bf16
         m, per_batch = run_cli(
@@ -3626,6 +3809,7 @@ def main():
     phase_build()
     kern = phase_kernels()
     sample = phase_sample_kernel()
+    blur = phase_upfirdn()
     phase_parity()
     phase_parity(planar=True)
     engine_launches = phase_engine(card_str)
@@ -3733,6 +3917,30 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": sample[35]["bound_by"],
         "library_ms": sum(r["library_ms"] for r in sample.values()),
+    })
+    shapes = [k for k in blur if k != "r1"]
+    line.append({
+        "name": "upfirdn2d", "route": "cuda",
+        "source": "spgan_tpu_torch/csrc/upfirdn2d.cu",
+        # the JAX package's upfirdn2d is XLA's depthwise conv
+        "replaces": None,
+        # asserted in phases 4 and 7: a close-loop generate, a plain and an
+        # R1+PPL training step
+        "launches": {"generate": UPFIRDN_PER_GENERATE,
+                     "plain_step": UPFIRDN_PER_PLAIN_STEP,
+                     "reg_step": UPFIRDN_PER_REG_STEP},
+        # float32 shapes: max abs error; bf16: ulps
+        "max_err": {k: blur[k]["err"] for k in shapes},
+        # one launch at each shape of UPFIRDN_SHAPES
+        "ms": {k: blur[k]["ms"] for k in shapes},
+        "device_ms": {k: blur[k]["device_ms"] for k in shapes},
+        "pct_bound": {k: 100 * blur[k]["bound_ms"] / blur[k]["device_ms"]
+                      for k in shapes},
+        "plain_ms": {k: blur[k]["plain_ms"] for k in shapes},
+        "bound_ms": {k: blur[k]["bound_ms"] for k in shapes},
+        "bound_by": "bytes",
+        "library_ms": {k: blur[k]["library_ms"] for k in shapes},
+        "r1_double_backward_ms": blur["r1"],
     })
     print(f"[env] whole script {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -3,9 +3,9 @@
 Each ``spgan_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (sm_90a) into a shared library under
 ``spgan_tpu_torch/_build/`` (listed in .gitignore), keyed by a hash of the
-source, the ``csrc/*.cuh`` headers and the flags, at first use.  The
-library is loaded with ctypes.  A build that fails raises; nothing falls
-back.
+source, the ``csrc/*.cuh`` headers and the flags; the first ``load``
+builds every stale source.  The library is loaded with ctypes.  A build
+that fails raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -86,8 +86,16 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     return logs
 
 
+def sources() -> list:
+    """The names of every ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    build([name])
+    """The loaded library of ``csrc/<name>.cu``.  Its first call builds
+    every source whose library is stale, all together, so a program's
+    first kernel call (or a set-up step that makes one) pays for every
+    build at once."""
+    build(sources())
     return ctypes.CDLL(str(library_path(name)))
