@@ -19,6 +19,7 @@ key for key); conv weights are OIHW and linear weights (out, in).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field as dfield
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +42,7 @@ from spgan_tpu_torch.ops.spatial import (ConvSpec, derive_stitch_geometry,
                                          out_size_chain)
 from spgan_tpu_torch.parallel.mesh import all_reduce_mean
 from spgan_tpu_torch.tree import tree_map
+from spgan_tpu_torch.utils import trace
 
 
 def create_fusion_styles(fusion_map: torch.Tensor, styles) -> torch.Tensor:
@@ -105,6 +107,10 @@ def patch_grids(cp: CoordsPartial, sizes: Sequence[int],
 
 # layers of the ss_mapping MLP (reference: n_mlp 8)
 SS_MAPPING_LAYERS = 8
+# TS convs of the 101-pixel plan: a larger plan's convs past these (9-10
+# of the 197 plan, with its fourth sphere skip conv and last ToRGB) run
+# under the span spgan.generator.ts_top
+TS_BASE_LAYERS = 8
 
 
 # ----------------------------------------------------------------------
@@ -415,27 +421,33 @@ class TextureSynthesizer:
         skip = None
         feats = {}
         cur_rgb = 0
-        for i, spec in enumerate(self._styled_convs()):
-            h = spec.apply(params["convs"][i], h, style_at(i),
-                           noise=None if noises is None else noises[i])
-            t = to_rgbs[cur_rgb]
-            if i == t["src"]:
-                if i in i2j:
-                    j = i2j[i]
-                    if return_feats:
-                        feats[f"to_rgb_{i}"] = skip
-                    if skip_grids is not None:
-                        skip = sphere_skip.apply(params["sp_convs"][j], skip,
-                                                 None, grid=skip_grids[j])
-                    else:
-                        skip = sphere_skip.apply(
-                            params["sp_convs"][j], skip, skip_tables[j],
-                            groups=groups, margin=skip_margins[j])
-                    if return_feats:
-                        feats[f"sphere_to_rgb_{i}"] = skip
-                skip = rgb_specs[cur_rgb].apply(
-                    params["to_rgbs"][cur_rgb], h, style_at(t["tgt"]), skip)
-                cur_rgb += 1
+        with contextlib.ExitStack() as top:
+            for i, spec in enumerate(self._styled_convs()):
+                if i == TS_BASE_LAYERS:
+                    top.enter_context(trace.span("spgan.generator.ts_top"))
+                h = spec.apply(params["convs"][i], h, style_at(i),
+                               noise=None if noises is None else noises[i])
+                t = to_rgbs[cur_rgb]
+                if i == t["src"]:
+                    if i in i2j:
+                        j = i2j[i]
+                        trace.count("spgan.generator.sphere_skip")
+                        if return_feats:
+                            feats[f"to_rgb_{i}"] = skip
+                        if skip_grids is not None:
+                            skip = sphere_skip.apply(
+                                params["sp_convs"][j], skip, None,
+                                grid=skip_grids[j])
+                        else:
+                            skip = sphere_skip.apply(
+                                params["sp_convs"][j], skip, skip_tables[j],
+                                groups=groups, margin=skip_margins[j])
+                        if return_feats:
+                            feats[f"sphere_to_rgb_{i}"] = skip
+                    skip = rgb_specs[cur_rgb].apply(
+                        params["to_rgbs"][cur_rgb], h, style_at(t["tgt"]),
+                        skip)
+                    cur_rgb += 1
         if return_feats:
             return skip, feats
         return skip
