@@ -11,8 +11,10 @@ package's loader).
 The library is built with g++ (the JAX package's flags, so both packages
 make the same batches on one machine) into ``spgan_tpu_torch/_build/``,
 keyed by a hash of the source and the flags, at first use; ``build``
-serves the port's other C++ source (the PNG unfilter, utils/png.py)
-the same way.  A build that
+serves the port's other C++ sources (the PNG unfilter, utils/png.py; the
+uint8 quantiser, infer/managers.py, with flags of its own) the same way.
+A library built with ``-march=native`` is keyed by the host's CPU too, so
+a ``_build/`` copied to another machine is rebuilt there.  A build that
 fails raises: nothing falls back to a Python reader, whose resize differs.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 from pathlib import Path
@@ -36,25 +39,48 @@ MAGIC = 0x31525053  # "SPR1"
 HEADER_BYTES = 24
 
 
-def library_path(src: Path = SRC) -> Path:
+@functools.lru_cache(maxsize=None)
+def host_cpu() -> str:
+    """The host's architecture and, where /proc/cpuinfo has them, its
+    first CPU's model and feature lines: what ``-march=native`` builds
+    for."""
+    keep = ("model name", "flags", "CPU implementer", "CPU part",
+            "Features")
+    lines = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first CPU's block ends
+                if line.split(":")[0].strip() in keep:
+                    lines.append(line.strip())
+    except OSError:
+        pass
+    return "\n".join(lines)
+
+
+def library_path(src: Path = SRC, flags=CXX_FLAGS) -> Path:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join((CXX,) + CXX_FLAGS).encode())
+    h.update(" ".join((CXX,) + tuple(flags)).encode())
+    if "-march=native" in flags:
+        h.update(host_cpu().encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(src: Path = SRC, what: str = "the native loader") -> Path:
+def build(src: Path = SRC, what: str = "the native loader",
+          flags=CXX_FLAGS) -> Path:
     """The library of the C++ source `src` (default the loader's),
-    compiled with g++ unless one exists for the current source and flags;
-    raises RuntimeError, naming `what`, when the compiler fails or is
-    missing."""
-    out = library_path(src)
+    compiled with g++ and `flags` unless one exists for the current
+    source, flags (and host CPU, under -march=native); raises
+    RuntimeError, naming `what`, when the compiler fails or is missing."""
+    out = library_path(src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(src), "-o", tmp],
+        proc = subprocess.run([CXX, *flags, str(src), "-o", tmp],
                               capture_output=True, text=True)
     except OSError as e:
         os.unlink(tmp)

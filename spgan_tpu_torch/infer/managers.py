@@ -13,7 +13,9 @@ seed; only rank 0 writes PNGs and the speed-benchmark files.
 """
 from __future__ import annotations
 
+import ctypes
 import datetime
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -45,9 +47,52 @@ def halo_seed(gen: torch.Generator) -> int:
                              device=gen.device))
 
 
+# the quantiser's build: no -march=native (its x86 path is SSE2), no FMA
+TO_UINT8_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC",
+                  "-std=c++17", "-pthread")
+TO_UINT8_BYTES_PER_THREAD = 8 << 20
+TO_UINT8_MAX_THREADS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _to_uint8_lib() -> ctypes.CDLL:
+    from spgan_tpu_torch.data import native_loader
+
+    lib = ctypes.CDLL(str(native_loader.build(
+        native_loader.PKG_DIR / "native" / "to_uint8.cc",
+        "the uint8 quantiser", TO_UINT8_FLAGS)))
+    lib.spgan_to_uint8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int64, ctypes.c_int]
+    lib.spgan_to_uint8.restype = ctypes.c_int
+    return lib
+
+
+def to_uint8_threads(nbytes: int, cpus: int) -> int:
+    """The threads `to_uint8` splits an input of `nbytes` over: one per
+    whole 8 MiB, at least 1, at most 8 and at most the `cpus` this
+    process may run on."""
+    return max(1, min(nbytes // TO_UINT8_BYTES_PER_THREAD,
+                      TO_UINT8_MAX_THREADS, cpus))
+
+
 def to_uint8(images: np.ndarray) -> np.ndarray:
-    """(..., 3) in [-1, 1] -> uint8, quantized as the JAX package does."""
+    """(..., 3) in [-1, 1] -> uint8, quantized as the JAX package does:
+    clip((x + 1) / 2, 0, 1) * 255 + 0.5, truncated.  A C-contiguous
+    float32 array takes one native pass (native/to_uint8.cc, the same
+    bytes; the GIL is released and the threads follow the size), counted
+    by `spgan.engine.to_uint8.native` and `.threads`; anything else takes
+    numpy."""
     with trace.span("spgan.engine.to_uint8"):
+        if (images.dtype == np.float32 and images.flags.c_contiguous
+                and images.flags.aligned):
+            out = np.empty(images.shape, np.uint8)
+            ran = _to_uint8_lib().spgan_to_uint8(
+                images.ctypes.data, out.ctypes.data, images.size,
+                to_uint8_threads(images.nbytes,
+                                 len(os.sched_getaffinity(0))))
+            trace.count("spgan.engine.to_uint8.native")
+            trace.count("spgan.engine.to_uint8.threads", ran)
+            return out
         arr = np.clip((images + 1.0) / 2.0, 0.0, 1.0)
         return (arr * 255.0 + 0.5).astype(np.uint8)
 

@@ -17,9 +17,11 @@ Stamps are ``time.perf_counter_ns()``; ``records()`` exports them on the
 Unix-ns clock of ``time.time_ns()``, the clock of a profiler event's
 ``start_ns()``, through the offset between the two taken at ``enable()``.
 
-Counters always count: ``count(name, n)`` is a dictionary add, and
-``counters()`` returns them (the kernel wrappers' launches, the engine's
-batches, the training step's iterations).
+Counters always count: ``count(name, n)`` is a dictionary add under the
+tracer's lock, so threads may count at once (`to_uint8` on batch slices
+in worker threads), and ``counters()`` returns them (the kernel
+wrappers' launches, the engine's batches, the training step's
+iterations).
 """
 from __future__ import annotations
 
@@ -115,10 +117,12 @@ def reset() -> None:
 
 
 def count(name: str, n: int = 1) -> int:
-    """Add n to a counter; its new value."""
-    _counts[name] = v = _counts.get(name, 0) + n
+    """Add n to a counter; its new value.  Threads may count at once."""
+    with _lock:
+        _counts[name] = v = _counts.get(name, 0) + n
     return v
 
 
 def counters() -> Dict[str, int]:
-    return dict(_counts)
+    with _lock:
+        return dict(_counts)
