@@ -14,7 +14,12 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 from spgan_tpu_torch.utils import yaml
+
+# TrainParams.compute_dtype's values as torch dtypes
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass

@@ -9,93 +9,28 @@ maps it, ``write_records`` writes one with numpy, and
 package's loader).
 
 The library is built with g++ (the JAX package's flags, so both packages
-make the same batches on one machine) into ``spgan_tpu_torch/_build/``,
-keyed by a hash of the source and the flags, at first use; ``build``
-serves the port's other C++ sources (the PNG unfilter, utils/png.py; the
-uint8 quantiser, infer/managers.py, with flags of its own) the same way.
-A library built with ``-march=native`` is keyed by the host's CPU too, so
-a ``_build/`` copied to another machine is rebuilt there.  A build that
-fails raises: nothing falls back to a Python reader, whose resize differs.
+make the same batches on one machine) by ``utils/native.py`` into the
+port's build cache at first use.  A build that fails raises: nothing
+falls back to a Python reader, whose resize differs.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import platform
-import subprocess
-import tempfile
-from pathlib import Path
-
 import numpy as np
 
-PKG_DIR = Path(__file__).resolve().parents[1]
-SRC = PKG_DIR / "native" / "spgan_loader.cc"
-BUILD_DIR = PKG_DIR / "_build"
-CXX = "g++"
-CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+from spgan_tpu_torch.utils import native
+
+SRC = native.PKG_DIR / "native" / "spgan_loader.cc"
 MAGIC = 0x31525053  # "SPR1"
 HEADER_BYTES = 24
 
 
 @functools.lru_cache(maxsize=None)
-def host_cpu() -> str:
-    """The host's architecture and, where /proc/cpuinfo has them, its
-    first CPU's model and feature lines: what ``-march=native`` builds
-    for."""
-    keep = ("model name", "flags", "CPU implementer", "CPU part",
-            "Features")
-    lines = [platform.machine()]
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if not line.strip():
-                    break  # the first CPU's block ends
-                if line.split(":")[0].strip() in keep:
-                    lines.append(line.strip())
-    except OSError:
-        pass
-    return "\n".join(lines)
-
-
-def library_path(src: Path = SRC, flags=CXX_FLAGS) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join((CXX,) + tuple(flags)).encode())
-    if "-march=native" in flags:
-        h.update(host_cpu().encode())
-    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
-
-
-def build(src: Path = SRC, what: str = "the native loader",
-          flags=CXX_FLAGS) -> Path:
-    """The library of the C++ source `src` (default the loader's),
-    compiled with g++ and `flags` unless one exists for the current
-    source, flags (and host CPU, under -march=native); raises
-    RuntimeError, naming `what`, when the compiler fails or is missing."""
-    out = library_path(src, flags)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([CXX, *flags, str(src), "-o", tmp],
-                              capture_output=True, text=True)
-    except OSError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"cannot run {CXX!r} to build {what}: {e}") from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"{CXX} failed to build {src} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders agree
-    return out
-
-
-@functools.lru_cache(maxsize=None)
 def get_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(native.build_cxx(SRC, "the native loader",
+                                           native.HOST_FLAGS)))
     lib.spr_open.restype = ctypes.c_void_p
     lib.spr_open.argtypes = [ctypes.c_char_p]
     lib.spr_close.restype = None

@@ -24,7 +24,7 @@ import torch
 from spgan_tpu_torch.geometry.sphere_grid import (global_sphere_pattern,
                                                   incre_interval_pattern)
 from spgan_tpu_torch.ops.grid_sample import nearest_grid_sample_shared
-from spgan_tpu_torch.ops.modulated import conv2d_nhwc
+from spgan_tpu_torch.ops.linear import conv2d_nhwc
 
 
 def _to_grid(pat: np.ndarray, h: int, w: int) -> np.ndarray:

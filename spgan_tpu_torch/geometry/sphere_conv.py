@@ -35,7 +35,8 @@ from spgan_tpu_torch.ops.grid_sample import st_grid_sample_3x3, st_tap_conv
 from spgan_tpu_torch.ops.kernels.sphere_kernel import (
     fused_sphere_conv, fused_sphere_conv_grouped)
 from spgan_tpu_torch.ops.kernels.sphere_sample import st_sample_taps
-from spgan_tpu_torch.ops.modulated import ModulatedConv2d, conv2d_nhwc
+from spgan_tpu_torch.ops.linear import conv2d_nhwc
+from spgan_tpu_torch.ops.modulated import ModulatedConv2d
 
 
 def _taps(w: torch.Tensor) -> torch.Tensor:

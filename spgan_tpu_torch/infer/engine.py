@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from spgan_tpu_torch.config import COMPUTE_DTYPES
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.geometry.coords import CoordsPartial
 from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
@@ -42,8 +43,6 @@ from spgan_tpu_torch.models.generator import (Generator, skip_margin,
                                               tables_to)
 from spgan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from spgan_tpu_torch.utils import trace
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def refuse_planar(g: Generator) -> None:
@@ -262,7 +261,7 @@ class PanoramaEngine:
             self._ss_grids, self._ss_tables, self._skip_tables,
             self._skip_margins, batch=self.batch, win=plan.window,
             out_sizes=plan.geom.outfeat_sizes,
-            cdt=_DTYPES[self.compute_dtype], ss_maps=ss_maps,
+            cdt=COMPUTE_DTYPES[self.compute_dtype], ss_maps=ss_maps,
             rows=sel)
 
     @torch.inference_mode()

@@ -46,13 +46,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from spgan_tpu_torch.config import COMPUTE_DTYPES
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.geometry.coords import CoordsPartial
 from spgan_tpu_torch.geometry.sphere_grid import (sphere_offset_tables_batch,
                                                   sphere_patch_grid_batch)
-from spgan_tpu_torch.infer.engine import (_DTYPES, refuse_planar,
-                                          render_patches, scatter_patches,
-                                          wrap_full_map)
+from spgan_tpu_torch.infer.engine import (refuse_planar, render_patches,
+                                          scatter_patches, wrap_full_map)
 from spgan_tpu_torch.infer.stitcher import LatticePlan
 from spgan_tpu_torch.models.generator import Generator, skip_margin, tables_to
 from spgan_tpu_torch.parallel.mesh import Mesh, gather_rows, ring_from_right
@@ -93,7 +93,7 @@ class WidthShardedGenerate:
             raise ValueError("width sharding targets closed-loop panoramas")
         self.g, self.plan, self.mesh, self.batch = g, plan, mesh, batch
         self.device = resolve(device)
-        self.cdt = _DTYPES[compute_dtype]
+        self.cdt = COMPUTE_DTYPES[compute_dtype]
         ndev = mesh.world_size
         zx = plan.geom.latentspace_step
         win = plan.window

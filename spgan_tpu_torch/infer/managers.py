@@ -56,11 +56,11 @@ TO_UINT8_MAX_THREADS = 8
 
 @functools.lru_cache(maxsize=None)
 def _to_uint8_lib() -> ctypes.CDLL:
-    from spgan_tpu_torch.data import native_loader
+    from spgan_tpu_torch.utils import native
 
-    lib = ctypes.CDLL(str(native_loader.build(
-        native_loader.PKG_DIR / "native" / "to_uint8.cc",
-        "the uint8 quantiser", TO_UINT8_FLAGS)))
+    lib = ctypes.CDLL(str(native.build_cxx(
+        native.PKG_DIR / "native" / "to_uint8.cc", "the uint8 quantiser",
+        TO_UINT8_FLAGS)))
     lib.spgan_to_uint8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_int64, ctypes.c_int]
     lib.spgan_to_uint8.restype = ctypes.c_int

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels for Hopper: builder (build.py) and the
-wrappers with their plain PyTorch versions."""
+"""Hand-written CUDA kernels for Hopper: the wrappers with their plain
+PyTorch versions (``utils/native.py`` builds and loads the kernels)."""

@@ -48,9 +48,9 @@ def fused_sphere_conv_plain(x: torch.Tensor, tables: dict, w9: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """csrc/sphere_conv.cu's launch function, built at first use."""
-    from spgan_tpu_torch.ops.kernels import build
+    from spgan_tpu_torch.utils import native
 
-    fn = build.load("sphere_conv").sphere_conv_launch
+    fn = native.load_cuda("sphere_conv").sphere_conv_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

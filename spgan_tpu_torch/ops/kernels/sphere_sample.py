@@ -42,9 +42,9 @@ def sphere_sample_taps_plain(x: torch.Tensor, tables: dict,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """csrc/sphere_sample.cu, built at first use, argument types set once."""
-    from spgan_tpu_torch.ops.kernels import build
+    from spgan_tpu_torch.utils import native
 
-    lib = build.load("sphere_sample")
+    lib = native.load_cuda("sphere_sample")
     lib.sphere_sample_launch.argtypes = ([ctypes.c_void_p] * 7
                                          + [ctypes.c_int] * 7
                                          + [ctypes.c_void_p])

@@ -93,9 +93,9 @@ def upfirdn2d_plain(x: torch.Tensor, taps: Tuple[float, ...], kh: int,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """csrc/upfirdn2d.cu, built at first use, argument types set once."""
-    from spgan_tpu_torch.ops.kernels import build
+    from spgan_tpu_torch.utils import native
 
-    lib = build.load("upfirdn2d")
+    lib = native.load_cuda("upfirdn2d")
     lib.upfirdn2d_launch.argtypes = ([ctypes.c_void_p] * 2
                                      + [ctypes.POINTER(ctypes.c_float)]
                                      + [ctypes.c_int] * 13

@@ -18,6 +18,13 @@ import torch.nn.functional as F
 SQRT2 = math.sqrt(2.0)
 
 
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """NHWC activations, OIHW weight -> NHWC output."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
 def pixel_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-8
                ) -> torch.Tensor:
     """x * rsqrt(mean(x^2, channel) + eps). Channel-last by default."""
@@ -101,8 +108,7 @@ class EqualConv2d:
 
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         w = params["weight"].to(x.dtype) * self.scale
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                     padding=self.padding).permute(0, 2, 3, 1)
+        y = conv2d_nhwc(x, w, stride=self.stride, padding=self.padding)
         if "bias" in params:
             y = y + params["bias"].to(x.dtype)
         return y

@@ -18,15 +18,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from spgan_tpu_torch.ops.linear import EqualLinear, fused_leaky_relu
+from spgan_tpu_torch.ops.linear import (EqualLinear, conv2d_nhwc,
+                                       fused_leaky_relu)
 from spgan_tpu_torch.ops.upfirdn import Blur, Upsample
-
-
-def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-                padding: int = 0) -> torch.Tensor:
-    """NHWC activations, OIHW weight -> NHWC output."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1)
 
 
 def conv_transpose2_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

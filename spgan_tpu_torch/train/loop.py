@@ -55,7 +55,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.config import COMPUTE_DTYPES, Config
 from spgan_tpu_torch.data.pipeline import make_train_pipeline
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.models.generator import Generator
@@ -64,8 +64,7 @@ from spgan_tpu_torch.parallel.mesh import (Mesh, barrier, broadcast_int,
                                            make_mesh, replicate, shard_batch)
 from spgan_tpu_torch.train.checkpoint import CheckpointManager, save_best
 from spgan_tpu_torch.train.state import TrainState, create_train_state
-from spgan_tpu_torch.train.step import (_DTYPES, make_train_step,
-                                        refuse_baseline)
+from spgan_tpu_torch.train.step import make_train_step, refuse_baseline
 from spgan_tpu_torch.tree import tree_leaves, tree_map
 from spgan_tpu_torch.utils import trace
 from spgan_tpu_torch.utils.misc import backup_files, import_func
@@ -126,7 +125,7 @@ def make_image_grids(cfg: Config, g: Generator, seed: int, device
     iteration `it` come from (seed + 1, it)."""
     tp = cfg.train_params
     dev = resolve(device)
-    cdt = _DTYPES[tp.compute_dtype]
+    cdt = COMPUTE_DTYPES[tp.compute_dtype]
     sampler = LatentSampler(global_dim=tp.global_latent_dim,
                             local_dim=tp.local_latent_dim,
                             ts_input_size=tp.ts_input_size,

@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from spgan_tpu_torch.config import Config
+from spgan_tpu_torch.config import COMPUTE_DTYPES, Config
 from spgan_tpu_torch.geometry.sphere_grid import sphere_offset_tables_batch
 from spgan_tpu_torch.models import losses
 from spgan_tpu_torch.models.discriminator import Discriminator
@@ -50,8 +50,6 @@ from spgan_tpu_torch.train.state import (TrainState, ema_update, global_norm,
                                          lr_schedule_factor, make_optimizers)
 from spgan_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 from spgan_tpu_torch.utils import trace
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -135,7 +133,7 @@ class TrainStep:
         # a tree of python bools over params_g (True: the update is zeroed)
         self.freeze_g_mask = freeze_g_mask
         self.opt_g, self.opt_d = make_optimizers(cfg)
-        self.cdt = _DTYPES[tp.compute_dtype]
+        self.cdt = COMPUTE_DTYPES[tp.compute_dtype]
         self.sampler = LatentSampler(
             global_dim=tp.global_latent_dim, local_dim=tp.local_latent_dim,
             ts_input_size=tp.ts_input_size, ss_unfold_size=tp.ss_unfold_size,

@@ -7,7 +7,7 @@ needs PIL.
 ``PIL.Image.open(...).convert("RGB")`` gives: gray replicated, alpha
 dropped, palette indices looked up.  The scanline filters run in C++
 (``spgan_tpu_torch/native/png_unfilter.cc``, built with g++ at first use
-as the record loader is); ``unfilter_plain`` is the same in numpy.
+by ``utils/native.py``); ``unfilter_plain`` is the same in numpy.
 ``decode_image`` takes any image file's bytes: such a PNG in-tree, and
 anything else (JPEG, 16-bit or interlaced PNG) through PIL when PIL
 imports, otherwise it raises and names PIL.
@@ -112,11 +112,11 @@ def unfilter_plain(raw: np.ndarray, h: int, stride: int,
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from spgan_tpu_torch.data import native_loader
+    from spgan_tpu_torch.utils import native
 
-    lib = ctypes.CDLL(str(native_loader.build(
-        native_loader.PKG_DIR / "native" / "png_unfilter.cc",
-        "the PNG unfilter")))
+    lib = ctypes.CDLL(str(native.build_cxx(
+        native.PKG_DIR / "native" / "png_unfilter.cc", "the PNG unfilter",
+        native.HOST_FLAGS)))
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
     lib.png_unfilter.restype = ctypes.c_int

@@ -15,6 +15,7 @@ from spgan_tpu.data.pipeline import TrainPipeline as JTrainPipeline
 from spgan_tpu.data.pipeline import center_square_resize as jax_square
 from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.data import native_loader
+from spgan_tpu_torch.utils import native
 from spgan_tpu_torch.data.pipeline import (TrainPipeline, center_square_resize,
                                            make_data_source,
                                            make_train_pipeline)
@@ -202,8 +203,8 @@ def test_native_loader_matches_jax(records, jax_loader_lib):
 def test_loader_that_cannot_build_raises(records, tmp_path, monkeypatch):
     """No compiler: the .spr pipeline raises; it does not fall back to a
     Python reader (whose resize differs)."""
-    monkeypatch.setattr(native_loader, "CXX", str(tmp_path / "no-g++"))
-    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-g++"))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     native_loader.get_lib.cache_clear()
     try:
         _, cfg = _configs(source="spr", folder=records[0])

@@ -16,7 +16,6 @@ import torch
 
 from spgan_tpu.geometry.sphere_grid import sphere_offset_tables
 from spgan_tpu.ops.pallas import sphere_kernel as jk
-from spgan_tpu_torch.ops.kernels import build
 from spgan_tpu_torch.ops.kernels import sphere_kernel as tk
 from spgan_tpu_torch.utils import trace
 
@@ -107,8 +106,8 @@ def test_grouped_equals_per_sample_with_repeated_tables(dtype):
 def test_no_silent_cpu_fallback():
     """Without a card, a CUDA request raises instead of drifting to the
     plain version: entry points refuse the default device, the wrapper
-    refuses a tensor that is not on the CPU, and the builder reports a
-    missing nvcc."""
+    refuses a tensor that is not on the CPU (a missing nvcc:
+    tests/test_torch_native.py)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: "
                     "test_torch_sphere_kernel_card.py covers it")
@@ -127,32 +126,3 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         tk.fused_sphere_conv(x, tabs, torch.empty((9, 8, 8), device="meta"))
     assert _launches("sphere_conv") == before
-    try:
-        build.find_nvcc()
-    except RuntimeError as e:
-        assert "nvcc not found" in str(e)
-        with pytest.raises(RuntimeError, match="nvcc"):
-            build.build(["sphere_conv"])
-
-
-
-def test_library_key_covers_headers(tmp_path, monkeypatch):
-    """The built library's name changes with the source, with any csrc/*.cuh
-    header (a source may include it) and with the flags, so a stale .so is
-    never loaded after an edit."""
-    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
-    (tmp_path / "h.cuh").write_text("// v1\n")
-    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
-    first = build.library_path("k")
-    assert build.library_path("k") == first
-    (tmp_path / "h.cuh").write_text("// v2\n")
-    second = build.library_path("k")
-    assert second != first
-    (tmp_path / "other.cuh").write_text("// new header\n")
-    third = build.library_path("k")
-    assert third not in (first, second)
-    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
-    fourth = build.library_path("k")
-    assert fourth not in (first, second, third)
-    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
-    assert build.library_path("k") not in (first, second, third, fourth)

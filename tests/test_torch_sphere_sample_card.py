@@ -11,13 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.card import Launches, needs_card
 from spgan_tpu_torch.ops.kernels import sphere_sample as ts
-from spgan_tpu_torch.utils import trace
-
-
-def _launches(kernel: str) -> int:
-    """The wrapper's launch counter (utils/trace.py)."""
-    return trace.counters().get(f"spgan.{kernel}.launches", 0)
 
 
 def _random_tables(rng, B, H, K2, far=False, shift=9):
@@ -70,8 +65,7 @@ def test_kernel_matches_plain_on_card(dtype, case):
     C (a 16-byte store spans pixels), W=1 and 2 (every column clamps),
     H=1, shifts beyond the margin, rows far apart (slot eviction), and the
     extrapolated grids' widths with their wide margins."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    needs_card()
     B, H, W, C, margin, far = case
     rng = np.random.RandomState(sum(case[:5]))
     x = torch.tensor(rng.randn(B, H, W, C), dtype=dtype).cuda()
@@ -81,10 +75,9 @@ def test_kernel_matches_plain_on_card(dtype, case):
         starts = {(s * W * C * size) % 16 for s in range(B * 9 * H)}
         assert starts == set(range(0, 16, size))
     ref = ts.sphere_sample_taps_plain(x, tabs, margin).cpu()
-    n = _launches("sphere_sample")
-    got = ts.sphere_sample_taps(x, tabs, margin)
-    torch.cuda.synchronize()
-    assert _launches("sphere_sample") == n + 1
+    with Launches() as n:
+        got = ts.sphere_sample_taps(x, tabs, margin)
+    assert n.got["sphere_sample"] == 1
     assert got.dtype == dtype and tuple(got.shape) == (B, 9, H, W, C)
     assert torch.equal(got.cpu(), ref)
 
@@ -93,30 +86,54 @@ def test_kernel_matches_plain_on_card(dtype, case):
 def test_kernel_rejects_bad_operands_on_card():
     """The wrapper raises, and launches nothing, on operands the kernel does
     not take; the size checks are shape arithmetic and allocate nothing."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    needs_card()
     rng = np.random.RandomState(1)
     x = torch.randn(2, 5, 7, 259, device="cuda")
     tabs = _random_tables(rng, 2, 5, 9)
-    n = _launches("sphere_sample")
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        ts.sphere_sample_taps(x.half(), tabs)
-    with pytest.raises(ValueError, match="contiguous"):
-        ts.sphere_sample_taps(x.transpose(1, 2), tabs)
-    with pytest.raises(ValueError, match="table wy"):
-        ts.sphere_sample_taps(x, {**tabs, "wy": tabs["wy"].double()})
-    with pytest.raises(ValueError, match="table y0"):
-        ts.sphere_sample_taps(x, {**tabs, "y0": tabs["y0"][:1]})
-    # 2^31 output elements: 32768 taps of one 65536-channel pixel
-    wide = torch.zeros(1, 1, 1, 65536, device="cuda")
-    big = {k: torch.zeros((1, 1, 32768), dtype=dt, device="cuda")
-           for k, dt in ts.TABLE_DTYPES.items()}
-    before = torch.cuda.memory_allocated()
-    with pytest.raises(ValueError, match="2\\^31"):
-        ts.sphere_sample_taps(wide, big)
-    assert torch.cuda.memory_allocated() == before
-    # a row of 65536 float32 (256 KiB) does not fit in shared memory twice
-    with pytest.raises(ValueError, match="shared memory"):
-        ts.sphere_sample_taps(wide, {k: v[..., :9].contiguous()
-                                     for k, v in big.items()})
-    assert _launches("sphere_sample") == n
+    with Launches() as n:
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ts.sphere_sample_taps(x.half(), tabs)
+        with pytest.raises(ValueError, match="contiguous"):
+            ts.sphere_sample_taps(x.transpose(1, 2), tabs)
+        with pytest.raises(ValueError, match="table wy"):
+            ts.sphere_sample_taps(x, {**tabs, "wy": tabs["wy"].double()})
+        with pytest.raises(ValueError, match="table y0"):
+            ts.sphere_sample_taps(x, {**tabs, "y0": tabs["y0"][:1]})
+        # 2^31 output elements: 32768 taps of one 65536-channel pixel
+        wide = torch.zeros(1, 1, 1, 65536, device="cuda")
+        big = {k: torch.zeros((1, 1, 32768), dtype=dt, device="cuda")
+               for k, dt in ts.TABLE_DTYPES.items()}
+        before = torch.cuda.memory_allocated()
+        with pytest.raises(ValueError, match="2\\^31"):
+            ts.sphere_sample_taps(wide, big)
+        assert torch.cuda.memory_allocated() == before
+        # a row of 65536 float32 (256 KiB) does not fit in shared memory
+        # twice
+        with pytest.raises(ValueError, match="shared memory"):
+            ts.sphere_sample_taps(wide, {k: v[..., :9].contiguous()
+                                         for k, v in big.items()})
+    assert n.got["sphere_sample"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 8])
+@pytest.mark.parametrize("H", [35, 29, 23, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_training_shapes_on_card(dtype, H, B):
+    """The training step's own call at each SS size: C=259, the tables of
+    random training crops (x_total 45, y_total 140, partial 0.8), the
+    step's batch of 16 and a data-parallel rank's 8: exact."""
+    needs_card()
+    from spgan_tpu_torch.config import Config
+    from spgan_tpu_torch.geometry.sphere_grid import sphere_offset_tables_batch
+    from spgan_tpu_torch.models.generator import Generator
+
+    grid = Generator.from_config(Config()).ss.coord_grid
+    _, _, cp = grid.sample_training(
+        torch.Generator(device="cuda").manual_seed(H), B)
+    tabs = {k: v.contiguous()
+            for k, v in sphere_offset_tables_batch(cp, H, H).items()}
+    rng = np.random.RandomState(H + B)
+    x = torch.tensor(rng.randn(B, H, H, 259), dtype=dtype).cuda()
+    assert torch.equal(ts.sphere_sample_taps(x, tabs),
+                       ts.sphere_sample_taps_plain(x, tabs))

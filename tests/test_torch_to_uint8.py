@@ -1,7 +1,8 @@
 """`infer/managers.py::to_uint8`: the native pass (native/to_uint8.cc)
 against the numpy formula it replaces, bit for bit; the numpy path for
 other dtypes and layouts; the thread rule and the counters; the g++ build
-and its cache key.  Imports no JAX, so it also runs on the card's host
+(its cache key: tests/test_torch_native.py).  Imports no JAX, so it also
+runs on the card's host
 (`python -m pytest --noconftest -q tests/test_torch_to_uint8.py`)."""
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
-from spgan_tpu_torch.data import native_loader
 from spgan_tpu_torch.infer import managers
 from spgan_tpu_torch.infer.managers import to_uint8, to_uint8_threads
+from spgan_tpu_torch.utils import native as native_cache
 from spgan_tpu_torch.utils import trace
 
 NATIVE = "spgan.engine.to_uint8.native"
@@ -197,21 +198,21 @@ def test_counters_lose_no_update_under_thread_switches():
 
 
 def test_the_quantiser_builds_with_gpp_alone(tmp_path, monkeypatch):
-    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native_cache, "BUILD_DIR", tmp_path)
     managers._to_uint8_lib.cache_clear()
     ran = []
-    real_run = subprocess.run
+    real_popen = subprocess.Popen
 
-    def run(cmd, *a, **k):
+    def popen(cmd, *a, **k):
         ran.append(list(cmd))
-        return real_run(cmd, *a, **k)
+        return real_popen(cmd, *a, **k)
 
-    monkeypatch.setattr(native_loader.subprocess, "run", run)
+    monkeypatch.setattr(native_cache.subprocess, "Popen", popen)
     try:
         x = np.linspace(-1.5, 1.5, 1000, dtype=np.float32)
         np.testing.assert_array_equal(native(x), numpy_to_uint8(x))
-        lib = native_loader.library_path(
-            native_loader.PKG_DIR / "native" / "to_uint8.cc",
+        lib = native_cache.cxx_library_path(
+            native_cache.PKG_DIR / "native" / "to_uint8.cc",
             managers.TO_UINT8_FLAGS)
     finally:
         managers._to_uint8_lib.cache_clear()
@@ -226,27 +227,3 @@ def test_the_quantiser_builds_with_gpp_alone(tmp_path, monkeypatch):
                              text=True, check=True).stdout
         for op in ("cvttps2dq", "packssdw", "packuswb", "maxps", "minps"):
             assert op in asm, op
-
-
-def test_the_library_key_follows_source_flags_and_host(tmp_path,
-                                                       monkeypatch):
-    src = tmp_path / "to_uint8.cc"
-    shutil.copy(native_loader.PKG_DIR / "native" / "to_uint8.cc", src)
-    flags = managers.TO_UINT8_FLAGS
-    first = native_loader.library_path(src, flags)
-    assert first.name.startswith("libto_uint8_")
-    assert native_loader.library_path(src, flags) == first
-    src.write_text(src.read_text() + "\n// edited\n")
-    second = native_loader.library_path(src, flags)
-    assert second != first
-    third = native_loader.library_path(src, flags + ("-g",))
-    assert third not in (first, second)
-    # only a -march=native build depends on the host's CPU
-    native_flags = flags + ("-march=native",)
-    a = native_loader.library_path(src, native_flags)
-    monkeypatch.setattr(native_loader, "host_cpu", lambda: "another CPU")
-    assert native_loader.library_path(src, native_flags) != a
-    assert native_loader.library_path(src, flags) == second
-    assert native_loader.library_path(
-        native_loader.SRC) != native_loader.library_path(
-            native_loader.SRC, native_loader.CXX_FLAGS[:-1])

@@ -9,36 +9,27 @@ convolution, run with TF32 off.  float32 agrees within 1e-5 (sums of at
 most 16 products in another order); bf16 within one unit in the last
 place (both sum in float32 and round once, so only a sum that straddles a
 rounding boundary can differ)."""
-import contextlib
-
 import numpy as np
 import pytest
 import torch
 
+from helpers.card import Launches, needs_card, no_tf32
 from spgan_tpu_torch.ops import upfirdn as tu
 from spgan_tpu_torch.ops.kernels import upfirdn as ku
-from spgan_tpu_torch.utils import trace
 
 K121, K1331 = (1.0, 2.0, 1.0), (1.0, 3.0, 3.0, 1.0)
 
 
-def _launches() -> int:
-    return trace.counters().get("spgan.upfirdn.launches", 0)
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    was = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+@pytest.fixture(autouse=True)
+def _float32():
+    needs_card()
+    with no_tf32():
         yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = was
 
 
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _randn(*shape, seed):
+    return torch.randn(*shape, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
 
 
 def _taps(kernel, gain=1.0):
@@ -55,12 +46,19 @@ def _within_one_ulp(got, ref):
 
 
 # (B, H, W, C, stencil, gain, up, down, pads (py0, py1, px0, px1)): the
-# cells' shapes (the planar TS blur's 105^2 x 512, the training TS blur
-# at 21^2 and its adjoint, D's first blurs at 101^2 x 256 and the adjoint
-# of the first), the ToRGB skip's Upsample (C = 3) and its adjoint, the
-# zero-pad Upsample, Downsample at odd widths, crops (negative pads) and
-# odd C (5, 36: no 16-byte vector in bf16 at 36).
+# cells' calls at their own batches (the render cells' TS blur, 64 x
+# 105^2 x 512; the training step's TS blur at 16 x 105^2 x 512 and its
+# adjoint at 103^2; D's first blur and first skip blur at 16 x 101^2 x
+# 256), the same at a batch of 2 or 3 (and the TS blur at 21^2), the ToRGB
+# skip's Upsample (C = 3) and its adjoint, the zero-pad Upsample,
+# Downsample at odd widths, crops (negative pads) and odd C (5, 36: no
+# 16-byte vector in bf16 at 36).
 CASES = [
+    (64, 105, 105, 512, K121, 4.0, 1, 1, (0, 0, 0, 0)),
+    (16, 105, 105, 512, K121, 4.0, 1, 1, (0, 0, 0, 0)),
+    (16, 103, 103, 512, K121, 4.0, 1, 1, (2, 2, 2, 2)),
+    (16, 101, 101, 256, K1331, 1.0, 1, 1, (2, 2, 2, 2)),
+    (16, 101, 101, 256, K1331, 1.0, 1, 1, (1, 1, 1, 1)),
     (2, 105, 105, 512, K121, 4.0, 1, 1, (0, 0, 0, 0)),
     (3, 21, 21, 512, K121, 4.0, 1, 1, (0, 0, 0, 0)),
     (3, 19, 19, 512, K121, 4.0, 1, 1, (2, 2, 2, 2)),
@@ -84,17 +82,13 @@ def _ids(c):
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(dtype, case):
-    _card()
     B, H, W, C, kernel, gain, up, down, pad = case
     taps, kh = _taps(kernel, gain)
-    rng = np.random.RandomState(H * W + C)
-    x = torch.tensor(rng.randn(B, H, W, C).astype(np.float32)).cuda().to(dtype)
-    with _no_tf32():
-        ref = ku.upfirdn2d_plain(x.float(), taps, kh, up, down, pad)
-    n = _launches()
-    got = ku.upfirdn2d(x, taps, kh, up, down, pad)
-    torch.cuda.synchronize()
-    assert _launches() == n + 1
+    x = _randn(B, H, W, C, seed=B * H * W + C).to(dtype)
+    ref = ku.upfirdn2d_plain(x.float(), taps, kh, up, down, pad)
+    with Launches() as n:
+        got = ku.upfirdn2d(x, taps, kh, up, down, pad)
+    assert n.got["upfirdn"] == 1
     assert got.dtype == dtype and got.shape == ref.shape
     assert got.is_contiguous()
     if dtype == torch.float32:
@@ -107,15 +101,13 @@ def test_kernel_matches_plain_on_card(dtype, case):
 def test_unaligned_and_strided_inputs_on_card():
     """An input 4 bytes off a 16-byte boundary takes the one-element path;
     a strided view is made contiguous; both equal the plain version."""
-    _card()
     taps, kh = _taps(K1331)
     flat = torch.randn(1 + 2 * 9 * 10 * 32, device="cuda")
     x = flat[1:].view(2, 9, 10, 32)
     assert x.data_ptr() % 16 == 4
     strided = torch.randn(2, 10, 9, 32, device="cuda").transpose(1, 2)
     for inp in (x, strided):
-        with _no_tf32():
-            ref = ku.upfirdn2d_plain(inp, taps, kh, 1, 1, (2, 1, 2, 1))
+        ref = ku.upfirdn2d_plain(inp, taps, kh, 1, 1, (2, 1, 2, 1))
         got = ku.upfirdn2d(inp, taps, kh, 1, 1, (2, 1, 2, 1))
         assert float((got - ref).abs().max()) <= 1e-5
 
@@ -123,21 +115,21 @@ def test_unaligned_and_strided_inputs_on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel,gain,up,down,pad,shape", [
     (K1331, 1.0, 1, 1, (2, 2, 2, 2), (2, 25, 25, 64)),  # D's blur
+    (K1331, 1.0, 1, 1, (2, 2, 2, 2), (16, 101, 101, 256)),  # at its batch
     (K121, 4.0, 1, 1, (0, 0, 0, 0), (2, 21, 21, 64)),   # the TS blur
     (K121, 4.0, 2, 1, (1, 0, 1, 0), (2, 17, 17, 3)),    # the ToRGB skip
     (K1331, 1.0, 1, 2, (1, 1, 1, 1), (2, 18, 18, 8)),   # Downsample
-], ids=["d_blur", "ts_blur", "skip_upsample", "downsample"])
+], ids=["d_blur", "d_blur_16x101x256", "ts_blur", "skip_upsample",
+         "downsample"])
 def test_first_and_second_derivatives_on_card(kernel, gain, up, down, pad,
                                               shape):
     """An R1-style double backward through the op on the kernel equals the
     same through the plain version's autograd (cuDNN, TF32 off); the
     kernel launches once for the forward, once for the gradient and twice
     in the second backward."""
-    _card()
     taps, kh = _taps(kernel, gain)
-    rng = np.random.RandomState(kh + up + down)
-    x0 = torch.tensor(rng.randn(*shape).astype(np.float32)).cuda()
-    w0 = torch.tensor(rng.randn(shape[-1]).astype(np.float32)).cuda()
+    x0 = _randn(*shape, seed=kh + up + down)
+    w0 = _randn(shape[-1], seed=kh + up + down + 1)
 
     def second(fn):
         x = x0.clone().requires_grad_(True)
@@ -147,12 +139,10 @@ def test_first_and_second_derivatives_on_card(kernel, gain, up, down, pad,
         (g * g).sum().backward()
         return g.detach(), w.grad
 
-    n = _launches()
-    got = second(ku.upfirdn2d)
-    torch.cuda.synchronize()
-    assert _launches() == n + 4
-    with _no_tf32():
-        want = second(ku.upfirdn2d_plain)
+    with Launches() as n:
+        got = second(ku.upfirdn2d)
+    assert n.got["upfirdn"] == 4
+    want = second(ku.upfirdn2d_plain)
     for a, b in zip(got, want):
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0)
@@ -162,16 +152,17 @@ def test_first_and_second_derivatives_on_card(kernel, gain, up, down, pad,
 def test_counter_counts_each_launch_on_card():
     """spgan.upfirdn.launches: one a forward call of Blur, Upsample and
     Downsample; none for a CPU tensor or a refused call."""
-    _card()
     x = torch.randn(2, 12, 12, 16, device="cuda")
-    n = _launches()
-    for op in (tu.Blur(K1331, pad=(2, 2)), tu.Upsample(K121, no_zero_pad=True),
-               tu.Upsample(K1331), tu.Downsample(K1331)):
-        op(x)
-    assert _launches() == n + 4
-    tu.Blur(K1331, pad=(2, 2))(x.cpu())
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tu.Blur(K1331, pad=(2, 2))(x.half())
-    with pytest.raises(ValueError, match="at most 4x4"):
-        tu.blur(x, tu.gaussian_kernel(5), (2, 2))
-    assert _launches() == n + 4
+    with Launches() as n:
+        for op in (tu.Blur(K1331, pad=(2, 2)),
+                   tu.Upsample(K121, no_zero_pad=True),
+                   tu.Upsample(K1331), tu.Downsample(K1331)):
+            op(x)
+    assert n.got["upfirdn"] == 4
+    with Launches() as n:
+        tu.Blur(K1331, pad=(2, 2))(x.cpu())
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tu.Blur(K1331, pad=(2, 2))(x.half())
+        with pytest.raises(ValueError, match="at most 4x4"):
+            tu.blur(x, tu.gaussian_kernel(5), (2, 2))
+    assert n.got["upfirdn"] == 0
