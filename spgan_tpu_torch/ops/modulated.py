@@ -8,6 +8,11 @@ Same scale-input formulation as the JAX package:
 Activations are NHWC at every public function; convolutions run on the
 NCHW view of the NHWC tensor (channels-last memory, which cuDNN takes
 directly).  Conv weights are stored torch-style, OIHW (out, in, kh, kw).
+
+Outside autograd on a CUDA tensor, StyledConv ends in one hand-written
+epilogue (ops/kernels/styled_epilogue.py) instead of five elementwise
+passes: demodulation, noise, bias, LeakyReLU and gain in one read and one
+write of the conv output (``StyledConv.uses_epilogue``).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from spgan_tpu_torch.ops.kernels import styled_epilogue as _ep
 from spgan_tpu_torch.ops.linear import (EqualLinear, conv2d_nhwc,
                                        fused_leaky_relu)
 from spgan_tpu_torch.ops.upfirdn import Blur, Upsample
@@ -66,9 +72,12 @@ class ModulatedConv2d:
             return 0
         return 0 if self.no_zero_pad else self.kernel_size // 2
 
-    def _blur(self) -> Blur:
+    def _blur(self, crop: int = 0) -> Blur:
+        """The upsample's blur; with no_zero_pad, `crop` border pixels a
+        side of its input are cropped by its pads (negative)."""
         if self.no_zero_pad:
-            return Blur(self.blur_kernel, pad=(0, 0), upsample_factor=2)
+            return Blur(self.blur_kernel, pad=(-crop, -crop),
+                        upsample_factor=2)
         if len(self.blur_kernel) % 2 == 1:
             p = len(self.blur_kernel) // 2
             pad0 = pad1 = p
@@ -141,6 +150,14 @@ class ModulatedConv2d:
             y = y * demod
         return y
 
+    def _modulated_input(self, params: dict, x: torch.Tensor,
+                         style: torch.Tensor):
+        """A per-sample style's (s, scaled weight, x * s)."""
+        s = (self.style_scale(params, style)
+             if style.shape[-1] == self.style_dim else style)
+        w = params["weight"].to(x.dtype) * self.scale
+        return s, w, x * s[:, None, None, :].to(x.dtype)
+
     def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor
               ) -> torch.Tensor:
         """x: (B,H,W,in_ch); style: (B,style_dim), or (B,in_ch) already
@@ -150,10 +167,7 @@ class ModulatedConv2d:
         no_zero_pad."""
         if style.ndim == 4:
             return self.apply_spatial_style(params, x, style)
-        s = (self.style_scale(params, style)
-             if style.shape[-1] == self.style_dim else style)
-        w = params["weight"].to(x.dtype) * self.scale
-        xs = x * s[:, None, None, :].to(x.dtype)
+        s, w, xs = self._modulated_input(params, x, style)
         if self.demodulate:
             demod = self.demod_factors(params, s).to(x.dtype)
         if self.upsample:
@@ -167,6 +181,24 @@ class ModulatedConv2d:
         if self.demodulate:
             y = y * demod[:, None, None, :]
         return y
+
+    def apply_undemodulated(self, params: dict, x: torch.Tensor,
+                            style: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``apply`` of a per-sample style (demodulate True) less its last
+        multiply: (y, demod) with apply(...) = y * demod[:, None, None, :]
+        in real arithmetic; demod (B, out_ch) in float32.  On an upsample
+        the demodulation moves past the blur (it is constant over (h, w)
+        and the blur is linear and per channel), and the blur takes the
+        conv's output whole, the one-pixel crop of no_zero_pad folded
+        into its pads."""
+        s, w, xs = self._modulated_input(params, x, style)
+        demod = self.demod_factors(params, s.float())
+        if self.upsample:
+            y = conv_transpose2_nhwc(xs, w)
+            return self._blur(crop=int(self.no_zero_pad))(y), demod
+        # the epilogue writes over y, which it takes contiguous in NHWC
+        return conv2d_nhwc(xs, w, padding=self.padding).contiguous(), demod
 
 
 @dataclass(frozen=True)
@@ -217,8 +249,38 @@ class StyledConv:
             params["act_bias"] = torch.zeros((self.conv.out_ch,))
         return params
 
+    def uses_epilogue(self, x: torch.Tensor, style: torch.Tensor) -> bool:
+        """Whether ``apply`` ends in the hand-written epilogue: x on a CUDA
+        device outside autograd (the render engine runs under
+        inference_mode), fused_lrelu, a demodulated conv with a
+        per-sample style, and a dtype and width the kernel takes.
+        Everything else composes the ops (the CPU, the training step,
+        lrelu_plain, spatial styles)."""
+        return (x.is_cuda and not torch.is_grad_enabled()
+                and self.activation == "fused_lrelu"
+                and self.conv.demodulate and style.ndim != 4
+                and _ep.takes(x.dtype, self.conv.out_ch))
+
+    def apply_epilogue(self, params: dict, x: torch.Tensor,
+                       style: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``apply`` through ``apply_undemodulated`` and the epilogue (the
+        kernel on a CUDA tensor, its plain version on a CPU one): the
+        same function, the demodulation after an upsample's blur."""
+        y, demod = self.conv.apply_undemodulated(params["conv"], x, style)
+        nw = None
+        if self.disable_noise or noise is None:
+            noise = None
+        else:
+            b, h, w, _ = y.shape
+            noise = noise.to(y.dtype).expand(b, h, w, 1).contiguous()
+            nw = params["noise"]["weight"]
+        return _ep.styled_epilogue(y, demod, params["act_bias"], noise, nw)
+
     def apply(self, params: dict, x: torch.Tensor, style: torch.Tensor,
               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.uses_epilogue(x, style):
+            return self.apply_epilogue(params, x, style, noise)
         y = self.conv.apply(params["conv"], x, style)
         if not self.disable_noise:
             y = NoiseInjection().apply(params["noise"], y, noise=noise)

@@ -8,7 +8,8 @@ import torch
 
 from spgan_tpu_torch.utils import trace
 
-KERNELS = ("sphere_conv.grouped", "sphere_conv", "sphere_sample", "upfirdn")
+KERNELS = ("sphere_conv.grouped", "sphere_conv", "sphere_sample", "upfirdn",
+           "styled_epilogue")
 
 
 def needs_card():

@@ -64,8 +64,9 @@ def test_tiny_engine_matches_cpu_on_card(planar):
 @pytest.mark.gpu
 def test_full_width_generate_launches_on_card():
     """Config() at 384x768, batch 16, bf16, chunk 4: 48 grouped sphere
-    convs (4 SS layers x 12 chunks) and 84 upfirdn2d (7 a chunk: 4 TS
-    blurs, 3 ToRGB skips) a generate, nothing else."""
+    convs (4 SS layers x 12 chunks), 84 upfirdn2d (7 a chunk: 4 TS
+    blurs, 3 ToRGB skips) and 144 styled conv epilogues (12 a chunk: 8 TS
+    convs, 4 SS planar convs) a generate, nothing else."""
     from spgan_tpu_torch.config import Config
     from spgan_tpu_torch.infer.engine import PanoramaEngine
     from spgan_tpu_torch.infer.stitcher import build_close_loop_plan
@@ -83,8 +84,50 @@ def test_full_width_generate_launches_on_card():
         eng.generate(params, gen)
         with Launches() as n:
             meta = eng.generate(params, gen)
-    assert n.got == only(grouped=48, upfirdn=84)
+    assert n.got == only(grouped=48, upfirdn=84, styled_epilogue=144)
     assert tuple(meta.shape) == (16, 581, 768, 3)
+    assert bool(meta.isfinite().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan,launches", [
+    ("p197", dict(grouped=48, upfirdn=108, styled_epilogue=168)),
+    ("planar", dict(grouped=60, upfirdn=105, styled_epilogue=180)),
+])
+def test_full_width_generate_launches_other_plans_on_card(plan, launches):
+    """The two other render cells' generates, batch 16, chunk 4: the 197
+    plan at 768x1536 in bf16 (12 chunks of 10 TS and 4 SS styled convs, 5
+    TS blurs and 4 ToRGB skips) and the planar 384x768 lattice in float32
+    (all 60 positions: 15 chunks of 8 TS and 4 SS styled convs)."""
+    from spgan_tpu_torch.config import Config, load_config
+    from spgan_tpu_torch.infer.engine import PanoramaEngine
+    from spgan_tpu_torch.infer.stitcher import (build_close_loop_plan,
+                                                build_infinite_plan)
+    from spgan_tpu_torch.models.generator import Generator
+
+    if plan == "p197":
+        cfg = load_config(os.path.join(REPO, "configs", "model",
+                                       "spgan_p197_bf16.yaml"))
+        g = Generator.from_config(cfg)
+        lattice, dtype, shape = build_close_loop_plan(g, 768, 1536), \
+            "bfloat16", (16, 768, 1536)
+    else:
+        cfg = Config()
+        g = Generator.from_config(cfg)
+        lattice, dtype, shape = build_infinite_plan(g, 384, 768), \
+            "float32", (16, 384, 768)
+    params = g.init(torch.Generator().manual_seed(0), device="cuda")
+    eng = PanoramaEngine(g=g, plan=lattice, batch=16, patch_chunk=4,
+                         grid_partial=cfg.train_params.partial,
+                         compute_dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.inference_mode():
+        eng.generate(params, gen)
+        with Launches() as n:
+            meta = eng.generate(params, gen)
+        crop = eng.crop_to_target(meta)
+    assert n.got == only(**launches)
+    assert tuple(crop.shape[:3]) == shape
     assert bool(meta.isfinite().all())
 
 
@@ -121,6 +164,7 @@ def test_patch_forward_launches_on_card():
                       coords=torch.as_tensor(coords).cuda(), cp=cp,
                       noises=noises)["gen"]
     assert n.got["sphere_conv"] == g.ss.n_layers
+    assert n.got["styled_epilogue"] == g.ss.n_layers + g.ts.num_layers
     assert n.got["sphere_conv.grouped"] == n.got["sphere_sample"] == 0
     assert tuple(img.shape) == (B, 101, 101, 3)
     assert bool(img.isfinite().all())
@@ -183,6 +227,8 @@ def test_infer_cli_launches_per_batch_on_card(model, test, n, per_batch,
     assert batches >= 1
     assert got.got["sphere_conv.grouped"] == per_batch * batches
     assert got.got["sphere_conv"] == got.got["sphere_sample"] == 0
+    # 12 styled convs a chunk against 4 grouped sphere convs
+    assert got.got["styled_epilogue"] == 3 * per_batch * batches
     pngs = [f for f in os.listdir("out") if f.endswith(".png")]
     assert len(pngs) == n
     assert {_png_size(os.path.join("out", f)) for f in pngs} == {size}

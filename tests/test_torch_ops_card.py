@@ -129,7 +129,8 @@ def test_baseline_forward_matches_cpu_on_card():
     """spgan.yaml as the styleGAN2 baseline (out_res 128 from a 4x4 local
     latent, 10 convs of 512 channels, [1,3,3,1] blur) at batch 2: within
     1e-4 of the largest value (cuDNN and the CPU sum ten demodulated
-    layers in other orders); no sphere kernel launches."""
+    layers in other orders); no sphere kernel launches, one styled conv
+    epilogue a conv."""
     from spgan_tpu_torch.config import load_config
     from spgan_tpu_torch.models.generator import Generator
 
@@ -154,7 +155,9 @@ def test_baseline_forward_matches_cpu_on_card():
             out[dev] = g.apply(params, global_latent=gl.to(dev),
                                local_latent=ll.to(dev), coords=None, cp=None,
                                noises=[t.to(dev) for t in noises])["gen"]
-    assert n.got == only(upfirdn=n.got["upfirdn"])
+    # one epilogue a styled conv (inference mode on cuda), nothing else
+    assert n.got == only(upfirdn=n.got["upfirdn"],
+                         styled_epilogue=g.ts.num_layers)
     assert_close(out["cuda"], out["cpu"],
                  atol=1e-4 * float(out["cpu"].abs().max()))
 

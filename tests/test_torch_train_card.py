@@ -20,6 +20,10 @@ from helpers.card import Launches, needs_card, no_tf32, only, tiny_config
 # upfirdn2d launches: a plain step's D phase 47 and G phase 34, the R1
 # phase 40, the PPL phase 26 (the Function's calls, whatever the widths)
 UPFIRDN_PLAIN, UPFIRDN_REG = 81, 81 + 40 + 26
+# styled conv epilogues: the D phase's fake batch, made without a graph (8
+# TS and 4 SS styled convs); the G, R1 and PPL phases run under autograd
+# and compose the ops
+EPILOGUES = 12
 
 
 @pytest.fixture(autouse=True)
@@ -111,8 +115,8 @@ def test_tiny_step_phases_match_cpu_on_card():
 @pytest.mark.gpu
 def test_full_width_step_launches_on_card():
     """Config() (batch 16, float32, synthetic batches): the tap sampler 8
-    times a plain step and 12 an R1+PPL step, upfirdn2d 81 and 147, no
-    sphere conv; fewer than 256 convolutions on the R1+PPL step (a
+    times a plain step and 12 an R1+PPL step, upfirdn2d 81 and 147, the
+    styled conv epilogue 12 (the D phase's fake batch), no sphere conv; fewer than 256 convolutions on the R1+PPL step (a
     per-channel loop over the blurs' 256 or 512 channels would add 256
     alone; the step has 186 on the H100); every metric finite and G, D
     and the EMA moved."""
@@ -149,12 +153,12 @@ def test_full_width_step_launches_on_card():
     with Launches() as plain:
         s1 = run(s0, batches[1], False)
     assert plain.got == only(sphere_sample=2 * g.ss.n_layers,
-                             upfirdn=UPFIRDN_PLAIN)
+                             upfirdn=UPFIRDN_PLAIN, styled_epilogue=EPILOGUES)
     with profile(activities=[ProfilerActivity.CPU]) as prof, \
             Launches() as reg:
         s2 = run(s1, batches[2], True)
     assert reg.got == only(sphere_sample=3 * g.ss.n_layers,
-                           upfirdn=UPFIRDN_REG)
+                           upfirdn=UPFIRDN_REG, styled_epilogue=EPILOGUES)
     convs = sum(e.count for e in prof.key_averages()
                 if e.key == "aten::convolution")
     assert 0 < convs < 256
