@@ -4,7 +4,8 @@ train, data, log and test sections of a model yaml, and the test yaml),
 with the shipped defaults of ``spgan_tpu/config.py`` (reference
 configs/model/spgan.yaml and configs/test/spgan_384x768.yaml), and
 ``load_config``, which reads the reference-compatible yaml files
-(``utils/yaml.py``, no PyYAML needed).
+(``utils/yaml.py``, no PyYAML needed).  A model yaml's ``stylegan3``
+section configures models/stylegan3.py under NVlabs' argument names.
 """
 from __future__ import annotations
 
@@ -169,12 +170,43 @@ class TaskConfig:
 
 
 @dataclass
+class StyleGAN3Params:
+    """The ``stylegan3`` section of a model yaml: NVlabs stylegan3's
+    Generator arguments under its own names (networks_stylegan3.py;
+    train.py --cfg=stylegan3-t), for models/stylegan3.py.  The defaults
+    are StyleGAN3-T at 1024x1024."""
+
+    z_dim: int = 512
+    w_dim: int = 512
+    img_resolution: int = 1024
+    img_channels: int = 3
+    channel_base: int = 32768
+    channel_max: int = 512
+    num_layers: int = 14
+    num_critical: int = 2
+    first_cutoff: float = 2.0
+    first_stopband: float = 2 ** 2.1
+    last_stopband_rel: float = 2 ** 0.3
+    margin_size: int = 10
+    output_scale: float = 0.25
+    num_fp16_res: int = 4
+    conv_kernel: int = 3
+    filter_size: int = 6
+    lrelu_upsampling: int = 2
+    use_radial_filters: bool = False
+    conv_clamp: Optional[float] = 256.0
+    mapping_kwargs: Dict[str, Any] = field(
+        default_factory=lambda: {"num_layers": 2})
+
+
+@dataclass
 class Config:
     train_params: TrainParams = field(default_factory=TrainParams)
     data_params: DataParams = field(default_factory=DataParams)
     log_params: LogParams = field(default_factory=LogParams)
     test_params: TestParams = field(default_factory=TestParams)
     task: TaskConfig = field(default_factory=TaskConfig)
+    stylegan3: StyleGAN3Params = field(default_factory=StyleGAN3Params)
     exp_name: str = "spgan"
     log_dir: str = "logs"
 
@@ -222,7 +254,8 @@ def load_config(model_yaml: Optional[str] = None,
     ignored: Dict[str, Any] = {}
     if model_yaml is not None:
         raw = yaml.load(model_yaml) or {}
-        for section in ("data_params", "log_params", "test_params"):
+        for section in ("data_params", "log_params", "test_params",
+                        "stylegan3"):
             unknown = _apply_section(getattr(cfg, section),
                                      raw.get(section) or {})
             if unknown:

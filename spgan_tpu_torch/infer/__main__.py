@@ -11,6 +11,15 @@ flag):
         [--interactive] [--debug] [--engine folded|sharded|halo] \\
         [--device cuda|cpu]
 
+StyleGAN3-T at 1024x1024 (models/stylegan3.py, whole images through
+ImageGenerationManager):
+
+    python -m spgan_tpu_torch.infer \\
+        --model-config configs/model/stylegan3_t_ffhq1024.yaml \\
+        --test-config configs/test/stylegan3_1024.yaml
+
+with random weights from the seed (--ckpt reads SP-GAN checkpoints).
+
 Runs on cuda unless --device cpu.  Without --ckpt (or with --random-init)
 the generator has random weights from the seed.  --ckpt takes an .npz
 export (either package's save_params_npz), a reference PyTorch checkpoint,
@@ -156,9 +165,14 @@ def _run(args, mesh):
         params_ema = g.init(torch.Generator().manual_seed(seed), device=dev)
         print(" [!] Using randomly initialized weights"
               + (" (--random-init)" if args.random_init else " (no --ckpt)"))
+    elif not hasattr(g, "ts"):
+        raise ValueError("--ckpt reads SP-GAN checkpoints; StyleGAN3 "
+                         "renders random weights from the seed")
     else:
         params_ema = load_generator_params(args.ckpt, g, device=dev)
 
+    if args.calc_flops and not hasattr(g, "ts"):
+        raise ValueError("--calc-flops counts SP-GAN's patch generator")
     if args.calc_flops:
         fl = generator_flops(g)
         n_patches = 60  # 384x768 close-loop lattice

@@ -10,6 +10,10 @@ manager's mesh, the meta image on every rank) or "halo" (close-loop
 only: the fields split by width over the ranks, infer/halo.py; the meta
 image on rank 0).  Every rank of a world runs the manager with the same
 seed; only rank 0 writes PNGs and the speed-benchmark files.
+
+ImageGenerationManager renders whole images of a generator without a
+patch lattice (StyleGAN3, models/stylegan3.py) through ImageEngine
+(infer/image_engine.py), on one device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from spgan_tpu_torch.config import Config
 from spgan_tpu_torch.device import resolve
 from spgan_tpu_torch.infer.engine import PanoramaEngine
 from spgan_tpu_torch.infer.halo import make_width_sharded_generate
+from spgan_tpu_torch.infer.image_engine import ImageEngine
 from spgan_tpu_torch.infer.stitcher import (LatticePlan,
                                             build_close_loop_plan,
                                             build_infinite_plan)
@@ -302,3 +307,33 @@ class InfiniteGenerationManager(BaseManager):
     def task_specific_init(self, seed: Optional[int] = None) -> None:
         super().task_specific_init(seed)
         self.engine = self._build_engine(close_loop=False)
+
+
+@dataclass
+class ImageGenerationManager(BaseManager):
+    """Whole images of a generator without a patch lattice (StyleGAN3):
+    batches of task.batch_size new latents from the manager's generator,
+    each image saved whole.  task.engine must be folded; the TestingVars,
+    inversion and editing paths belong to the panorama managers."""
+
+    def task_specific_init(self, seed: Optional[int] = None) -> None:
+        super().task_specific_init(seed)
+        if self.config.task.engine != "folded":
+            raise ValueError("ImageGenerationManager renders on one device: "
+                             f"task.engine 'folded', got "
+                             f"{self.config.task.engine!r}")
+        task, res = self.config.task, self.g.img_resolution
+        if (task.height, task.width) != (res, res):
+            raise ValueError(f"task.height x task.width {task.height}x"
+                             f"{task.width}: the generator renders "
+                             f"{res}x{res}")
+        self.engine = ImageEngine(g=self.g, batch=self.config.task.batch_size,
+                                  device=self.device)
+
+    def create_vars(self, gen: torch.Generator) -> TestingVars:
+        raise NotImplementedError("TestingVars hold a panorama's latent "
+                                  "fields; an image generator has none")
+
+    def generate_with_vars(self, vars: TestingVars) -> np.ndarray:
+        raise NotImplementedError("TestingVars hold a panorama's latent "
+                                  "fields; an image generator has none")
