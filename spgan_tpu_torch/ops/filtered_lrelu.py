@@ -8,9 +8,12 @@ One layer's nonlinearity, in ``_filtered_lrelu_ref``'s order:
            ->  LeakyReLU(slope) * gain, clamp to [-clamp, clamp]
            ->  FIR with fd, keep every `down`-th sample
 
-The filters are 1-D and separable (applied along W, then along H).  Here
-every step is a PyTorch op on the NCHW view of an NHWC tensor, the same
-code on the CPU and on the card (no hand-written kernel yet):
+The filters are 1-D and separable (applied along W, then along H).
+
+``filtered_lrelu`` runs a CUDA tensor through one hand-written kernel
+(ops/kernels/filtered_lrelu.py, csrc/filtered_lrelu.cu), or raises, and
+a CPU tensor through the plain version, ``filtered_lrelu_plain``, where
+every step is a PyTorch op on the NCHW view of an NHWC tensor:
 
   * the upsample is polyphase, per axis: one depthwise convolution with
     `up` outputs a channel and one interleave copy, so the zero-inserted
@@ -24,7 +27,9 @@ code on the CPU and on the card (no hand-written kernel yet):
   * ``scale`` (B, C) multiplies x before the bias in the same pass (the
     modulated conv's demodulation, ops/modulated.py).
 
-Intermediates stay in x's dtype, as in ``_filtered_lrelu_ref``.
+The plain version keeps its intermediates in x's dtype, as
+``_filtered_lrelu_ref`` does; the kernel computes in float32 and rounds
+once.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from spgan_tpu_torch.ops.kernels import filtered_lrelu as kernel
 
 
 def kaiser_beta(atten: float) -> float:
@@ -163,8 +170,23 @@ def filtered_lrelu(x: torch.Tensor, fu: Sequence[float],
     ``_filtered_lrelu_ref(x * scale, fu, fd, b, up, down, padding, gain,
     slope, clamp)`` computes it on the NCHW tensor: fu and fd the 1-D
     filters' taps on the host, scale (B, C), padding (px0, px1, py0, py1)
-    (module docstring).  Outside autograd: it works in place on its own
-    intermediates.
+    (module docstring).  A CUDA tensor launches the kernel or the call
+    raises; a CPU tensor takes filtered_lrelu_plain."""
+    if x.device.type == "cpu":
+        return filtered_lrelu_plain(x, fu, fd, b, scale, up, down, padding,
+                                    gain, slope, clamp)
+    return kernel.filtered_lrelu(x, fu, fd, b, scale, up, down, padding,
+                                 gain, slope, clamp)
+
+
+def filtered_lrelu_plain(x: torch.Tensor, fu: Sequence[float],
+                         fd: Sequence[float], b: torch.Tensor,
+                         scale: torch.Tensor, up: int, down: int,
+                         padding: Sequence[int], gain: float = math.sqrt(2),
+                         slope: float = 0.2,
+                         clamp: Optional[float] = None) -> torch.Tensor:
+    """filtered_lrelu composed of PyTorch ops, on any device.  Outside
+    autograd: it works in place on its own intermediates.
 
     The batch runs in chunks whose largest intermediate, the upsampled
     tensor before its interleave, stays under MAX_ELEMENTS."""

@@ -9,7 +9,7 @@ import torch
 from spgan_tpu_torch.utils import trace
 
 KERNELS = ("sphere_conv.grouped", "sphere_conv", "sphere_sample", "upfirdn",
-           "styled_epilogue")
+           "styled_epilogue", "filtered_lrelu")
 
 
 def needs_card():
